@@ -1,0 +1,105 @@
+"""Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each kernel package keeps its sources in ``<package>/csrc/``; every ``.cu``
+file there becomes one shared library with a plain C interface, compiled
+for Hopper (``sm_90a``) into ``build/kernels/`` at the root of the checkout.
+The file name carries a hash of the package's sources and of the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+``build_all`` starts one ``nvcc`` per source and waits for all of them.
+
+Nothing is built when a module is imported: the first CUDA launch builds
+what it needs.  A missing ``nvcc`` or a failed compile raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
+
+# one entry per .cu source: library name -> source path
+SOURCES: Dict[str, Path] = {
+    "fused_cnn": _PKG / "fused_cnn" / "csrc" / "fused_cnn.cu",
+}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH nor under $CUDA_HOME/bin; the "
+                       "CUDA kernels cannot be built")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    csrc = SOURCES[name].parent
+    for f in sorted(csrc.iterdir()):
+        if f.suffix in (".cu", ".cuh", ".h"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build_all(names: Iterable[str] | None = None) -> Dict[str, float]:
+    """Compile the named libraries (all by default) that are not built yet,
+    one ``nvcc`` each, in parallel.  Returns seconds per library built; the
+    compiler's output (register and spill counts) goes to a ``.log``
+    beside each library."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not library_path(n).is_file()]
+    if not todo:
+        return {}
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=log,
+                                     stderr=subprocess.STDOUT), tmp, out, log)
+    secs = {}
+    for n, (proc, tmp, out, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        secs[n] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(
+                f"nvcc failed ({rc}) for {SOURCES[n]}:\n"
+                + out.with_suffix(".log").read_text())
+        os.replace(tmp, out)
+    return secs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The named library, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib

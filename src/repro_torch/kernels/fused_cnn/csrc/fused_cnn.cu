@@ -1,0 +1,538 @@
+// Hand-written Hopper (sm_90a) kernels for the fused CNN training step of
+// the OPT-HSFL simulation: one SGD step of the paper's 5-layer CNN for a
+// whole cohort of K users, f32 throughout.
+//
+// They replace the four blocked Pallas TPU kernels of
+// src/repro/kernels/fused_cnn/kernel.py:
+//
+//   conv_pool_fwd_k  (pallas_call at kernel.py:291) -> conv_pool_fwd_kernel
+//   conv_pool_bwd_k  (pallas_call at kernel.py:357) -> conv_bwd_partial_kernel
+//                                                    + conv_bwd_finish_kernel
+//   fc_chain_fwd_k   (pallas_call at kernel.py:398) -> fc_fwd_kernel
+//   fc_chain_bwd_k   (pallas_call at kernel.py:441) -> fc_bwd_act_kernel
+//                                                    + fc_bwd_grad_kernel
+//
+// What bounds them.  At the paper's shapes (K=10 users, batch B=10, 28x28x1
+// images) every kernel does well under a MFLOP per user and moves a few MB:
+// the im2col patches and the pool tie mask are most of the bytes, so each
+// kernel is bounded by memory traffic (H100 SXM: 3.35 TB/s; a few
+// microseconds each), far from the 67 TFLOP/s f32 peak.  In practice a
+// launch of a few microseconds is dominated by launch latency, and the
+// round by the host loop around 144 training launches.
+//
+// Design.  The TPU kernels walk a sequential grid over user tiles and keep
+// a whole user's layer in VMEM; here blocks run in parallel in no order, so
+// - every output element is owned by exactly one thread and every sum is
+//   taken in a fixed order: no float atomics, results are identical run to
+//   run;
+// - reductions across blocks (dW over B*H*W rows) go through a second
+//   launch over per-block partial sums;
+// - the conv product z is summed tap by tap in (i, j, c) order with
+//   __fmul_rn/__fadd_rn, which the compiler never contracts into an FMA.
+//   The plain PyTorch twin (ref.py) sums the same way, so tied pool maxima
+//   (zero backgrounds, constant images) are found identically and the
+//   1/count tie mask agrees bit for bit;
+// - SAME padding is implicit: out-of-range taps are skipped, no padded copy
+//   of the image is made;
+// - the image gradient dx is a gather (each input pixel sums its 9 taps in
+//   (i, j) order), not the padded-canvas scatter-add of the TPU kernel.
+// Simple f32 FMA code; tensor cores, TMA and wgmma are left for later work.
+//
+// Interface: plain C functions, bound with ctypes.  Each launches one
+// __global__ function on the given stream and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+#define API extern "C" __attribute__((visibility("default")))
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kFcThreads = 128;
+constexpr int kFcRows = 8;  // batch rows per fc block
+
+inline int set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---------------------------------------------------------------------------
+// conv_pool_fwd: patches + product + 2x2 max pool + bias + ReLU (pool first)
+// x (K,B,H,W,C), w (K,9C,O), bias (K,O) -> a (K,B,H/2,W/2,O);
+// residuals pat (K,B*H*W,9C), eq (K,B,H,W,O), relu_m (K,B,H/2,W/2,O).
+// One thread per pooled output (k, b, ph, pw, o); o is fastest, so the
+// threads of a window share their image reads.  The user's weights sit in
+// shared memory.  grid = (ceil(B*PH*PW*O / 256), K).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+conv_pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ a,
+                     float* __restrict__ pat, float* __restrict__ eq,
+                     float* __restrict__ relu_m, int B, int H, int W, int C,
+                     int O, int write_res) {
+  extern __shared__ float smem[];
+  const int k = blockIdx.y;
+  const int P = 9 * C;
+  float* ws = smem;          // (P, O)
+  float* bs = smem + P * O;  // (O,)
+  const float* wk = w + (size_t)k * P * O;
+  for (int i = threadIdx.x; i < P * O; i += blockDim.x) ws[i] = wk[i];
+  for (int i = threadIdx.x; i < O; i += blockDim.x)
+    bs[i] = bias[(size_t)k * O + i];
+  __syncthreads();
+
+  const int PH = H / 2, PW = W / 2;
+  const long long total = (long long)B * PH * PW * O;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int o = (int)(t % O);
+  long long r = t / O;
+  const int pw = (int)(r % PW);
+  r /= PW;
+  const int ph = (int)(r % PH);
+  const int bb = (int)(r / PH);
+  const float* xb = x + ((size_t)k * B + bb) * H * W * C;
+
+  float z[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int yy = 2 * ph + (q >> 1), xx = 2 * pw + (q & 1);
+    float acc = 0.f;
+    for (int i = 0; i < 3; ++i) {
+      const int sy = yy + i - 1;
+      if (sy < 0 || sy >= H) continue;
+      for (int j = 0; j < 3; ++j) {
+        const int sx = xx + j - 1;
+        if (sx < 0 || sx >= W) continue;
+        const float* xp = xb + ((size_t)sy * W + sx) * C;
+        const float* wp = ws + (i * 3 + j) * C * O + o;
+        for (int c = 0; c < C; ++c)
+          acc = __fadd_rn(acc, __fmul_rn(xp[c], wp[c * O]));
+      }
+    }
+    z[q] = acc;
+  }
+  const float pz = fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
+  const float pre = __fadd_rn(pz, bs[o]);
+  const size_t pidx = ((((size_t)k * B + bb) * PH + ph) * PW + pw) * O + o;
+  a[pidx] = fmaxf(pre, 0.f);
+  if (!write_res) return;
+  relu_m[pidx] = pre > 0.f ? 1.f : 0.f;
+
+  int cnt = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) cnt += z[q] == pz;
+  const float inv = __fdiv_rn(1.f, (float)cnt);
+  const size_t row0 = (size_t)k * B * H * W + (size_t)bb * H * W;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int yy = 2 * ph + (q >> 1), xx = 2 * pw + (q & 1);
+    eq[(row0 + (size_t)yy * W + xx) * O + o] = z[q] == pz ? inv : 0.f;
+  }
+  // the window's 4 patch rows (4*P values), spread over its O threads
+  for (int e = o; e < 4 * P; e += O) {
+    const int q = e / P, p = e % P;
+    const int tap = p / C, c = p % C;
+    const int yy = 2 * ph + (q >> 1), xx = 2 * pw + (q & 1);
+    const int sy = yy + tap / 3 - 1, sx = xx + tap % 3 - 1;
+    const bool in = sy >= 0 && sy < H && sx >= 0 && sx < W;
+    pat[(row0 + (size_t)yy * W + xx) * P + p] =
+        in ? xb[((size_t)sy * W + sx) * C + c] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// conv_pool_bwd, pass 1: dz = eq * (da * relu_m) upsampled, and per-chunk
+// partial sums of dW = pat^T dz over R rows of the M = B*H*W patch rows.
+// grid = (nchunks, K).  dz is also written out for pass 2's dx gather.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+conv_bwd_partial_kernel(const float* __restrict__ pat,
+                        const float* __restrict__ eq,
+                        const float* __restrict__ relu_m,
+                        const float* __restrict__ da, float* __restrict__ dz,
+                        float* __restrict__ part, int B, int H, int W, int C,
+                        int O, int R, int nchunks) {
+  extern __shared__ float smem[];
+  const int k = blockIdx.y, chunk = blockIdx.x;
+  const int P = 9 * C, M = B * H * W;
+  const int m0 = chunk * R;
+  const int rows = min(R, M - m0);
+  float* ps = smem;          // (R, P)
+  float* zs = smem + R * P;  // (R, O)
+  const float* pk = pat + ((size_t)k * M + m0) * P;
+  for (int i = threadIdx.x; i < rows * P; i += blockDim.x) ps[i] = pk[i];
+  const int PH = H / 2, PW = W / 2;
+  for (int i = threadIdx.x; i < rows * O; i += blockDim.x) {
+    const int o = i % O, m = m0 + i / O;
+    const int xx = m % W, yy = (m / W) % H, bb = m / (H * W);
+    const size_t pi =
+        ((((size_t)k * B + bb) * PH + yy / 2) * PW + xx / 2) * O + o;
+    const float dp = __fmul_rn(da[pi], relu_m[pi]);
+    const size_t zi = ((size_t)k * M + m) * O + o;
+    const float v = __fmul_rn(eq[zi], dp);
+    zs[i] = v;
+    dz[zi] = v;
+  }
+  __syncthreads();
+  float* out = part + ((size_t)k * nchunks + chunk) * P * O;
+  for (int idx = threadIdx.x; idx < P * O; idx += blockDim.x) {
+    const int p = idx / O, o = idx % O;
+    float acc = 0.f;
+    for (int r = 0; r < rows; ++r) acc = fmaf(ps[r * P + p], zs[r * O + o], acc);
+    out[idx] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// conv_pool_bwd, pass 2.  Blocks [0, K): dW[k] = sum of the chunk partials
+// in chunk order, and db[k] = sum of da*relu_m over the pooled positions
+// (a per-channel strided sum, then a fixed-order sum of the strides).
+// Blocks [K, ...): dx gather, one thread per input element (k,b,y,x,c):
+// dx = sum over the 9 taps (i,j) of dz[pixel (y+1-i, x+1-j)] . W[(i,j,c), :].
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+conv_bwd_finish_kernel(const float* __restrict__ part,
+                       const float* __restrict__ dz,
+                       const float* __restrict__ da,
+                       const float* __restrict__ relu_m,
+                       const float* __restrict__ w, float* __restrict__ dw,
+                       float* __restrict__ db, float* __restrict__ dx, int K,
+                       int B, int H, int W, int C, int O, int nchunks) {
+  __shared__ float red[kThreads];
+  const int P = 9 * C;
+  if ((int)blockIdx.x < K) {
+    const int k = blockIdx.x;
+    const float* pk = part + (size_t)k * nchunks * P * O;
+    for (int idx = threadIdx.x; idx < P * O; idx += blockDim.x) {
+      float acc = 0.f;
+      for (int c = 0; c < nchunks; ++c)
+        acc = __fadd_rn(acc, pk[(size_t)c * P * O + idx]);
+      dw[(size_t)k * P * O + idx] = acc;
+    }
+    const int G = blockDim.x / O;
+    const int NP = B * (H / 2) * (W / 2);
+    const int o = threadIdx.x % O, g = threadIdx.x / O;
+    float s = 0.f;
+    if (g < G) {
+      for (int p = g; p < NP; p += G) {
+        const size_t i = ((size_t)k * NP + p) * O + o;
+        s = __fadd_rn(s, __fmul_rn(da[i], relu_m[i]));
+      }
+    }
+    red[threadIdx.x] = s;
+    __syncthreads();
+    if ((int)threadIdx.x < O) {
+      float tot = 0.f;
+      for (int gg = 0; gg < G; ++gg) tot = __fadd_rn(tot, red[gg * O + threadIdx.x]);
+      db[(size_t)k * O + threadIdx.x] = tot;
+    }
+    return;
+  }
+  if (dx == nullptr) return;
+  const long long t = (long long)(blockIdx.x - K) * blockDim.x + threadIdx.x;
+  if (t >= (long long)K * B * H * W * C) return;
+  const int c = (int)(t % C);
+  long long r = t / C;
+  const int xx = (int)(r % W);
+  r /= W;
+  const int yy = (int)(r % H);
+  r /= H;
+  const int bb = (int)(r % B);
+  const int k = (int)(r / B);
+  const size_t M = (size_t)B * H * W;
+  const float* wk = w + (size_t)k * P * O;
+  float acc = 0.f;
+  for (int tap = 0; tap < 9; ++tap) {
+    const int sy = yy + 1 - tap / 3, sx = xx + 1 - tap % 3;
+    if (sy < 0 || sy >= H || sx < 0 || sx >= W) continue;
+    const float* zr = dz + ((size_t)k * M + ((size_t)bb * H + sy) * W + sx) * O;
+    const float* wr = wk + (size_t)(tap * C + c) * O;
+    float d = 0.f;
+    for (int o = 0; o < O; ++o) d = fmaf(zr[o], wr[o], d);
+    acc = __fadd_rn(acc, d);
+  }
+  dx[t] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// fc_chain_fwd: h1 = relu(x W1 + b1), h2 = relu(h1 W2 + b2), out = h2 W3 + b3.
+// One block per (row tile of kFcRows batch rows, user); the tile's input
+// rows and its h1/h2 stay in shared memory between the three products.
+// Thread j owns output column j of each layer for all rows of the tile.
+// grid = (ceil(B / kFcRows), K).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void dense_rows(const float* in_s, int fin,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ b,
+                                           int fout, bool relu, float* out_s,
+                                           float* __restrict__ out_g,
+                                           int rows) {
+  for (int j = threadIdx.x; j < fout; j += blockDim.x) {
+    float acc[kFcRows];
+#pragma unroll
+    for (int r = 0; r < kFcRows; ++r) acc[r] = 0.f;
+    for (int f = 0; f < fin; ++f) {
+      const float wv = w[(size_t)f * fout + j];
+#pragma unroll
+      for (int r = 0; r < kFcRows; ++r) acc[r] = fmaf(in_s[r * fin + f], wv, acc[r]);
+    }
+    const float bj = b[j];
+#pragma unroll
+    for (int r = 0; r < kFcRows; ++r) {
+      float v = __fadd_rn(acc[r], bj);
+      if (relu) v = fmaxf(v, 0.f);
+      if (out_s) out_s[r * fout + j] = v;
+      if (r < rows) out_g[(size_t)r * fout + j] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kFcThreads)
+fc_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ w2,
+              const float* __restrict__ b2, const float* __restrict__ w3,
+              const float* __restrict__ b3, float* __restrict__ out,
+              float* __restrict__ h1, float* __restrict__ h2, int B, int F,
+              int D1, int D2, int D3) {
+  extern __shared__ float smem[];
+  const int k = blockIdx.y, r0 = blockIdx.x * kFcRows;
+  const int rows = min(kFcRows, B - r0);
+  float* xs = smem;                   // (kFcRows, F)
+  float* h1s = xs + kFcRows * F;      // (kFcRows, D1)
+  float* h2s = h1s + kFcRows * D1;    // (kFcRows, D2)
+  const float* xk = x + ((size_t)k * B + r0) * F;
+  for (int i = threadIdx.x; i < kFcRows * F; i += blockDim.x)
+    xs[i] = i < rows * F ? xk[i] : 0.f;
+  __syncthreads();
+  const size_t row = (size_t)k * B + r0;
+  dense_rows(xs, F, w1 + (size_t)k * F * D1, b1 + (size_t)k * D1, D1, true,
+             h1s, h1 + row * D1, rows);
+  __syncthreads();
+  dense_rows(h1s, D1, w2 + (size_t)k * D1 * D2, b2 + (size_t)k * D2, D2, true,
+             h2s, h2 + row * D2, rows);
+  __syncthreads();
+  dense_rows(h2s, D2, w3 + (size_t)k * D2 * D3, b3 + (size_t)k * D3, D3, false,
+             nullptr, out + row * D3, rows);
+}
+
+// ---------------------------------------------------------------------------
+// fc_chain_bwd, pass 1: dh2 = (g W3^T) * (h2 > 0), dh1 = (dh2 W2^T) * (h1 > 0)
+// per row tile; dh2 stays in shared memory for the second product.
+// grid = (ceil(B / kFcRows), K).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kFcThreads)
+fc_bwd_act_kernel(const float* __restrict__ g, const float* __restrict__ h1,
+                  const float* __restrict__ h2, const float* __restrict__ w2,
+                  const float* __restrict__ w3, float* __restrict__ dh1,
+                  float* __restrict__ dh2, int B, int D1, int D2, int D3) {
+  extern __shared__ float smem[];
+  const int k = blockIdx.y, r0 = blockIdx.x * kFcRows;
+  const int rows = min(kFcRows, B - r0);
+  float* gs = smem;                  // (kFcRows, D3)
+  float* d2s = gs + kFcRows * D3;    // (kFcRows, D2)
+  const size_t row = (size_t)k * B + r0;
+  for (int i = threadIdx.x; i < kFcRows * D3; i += blockDim.x)
+    gs[i] = i < rows * D3 ? g[row * D3 + i] : 0.f;
+  __syncthreads();
+  const float* w3k = w3 + (size_t)k * D2 * D3;
+  for (int j = threadIdx.x; j < D2; j += blockDim.x) {
+    for (int r = 0; r < kFcRows; ++r) {
+      float acc = 0.f;
+      for (int c = 0; c < D3; ++c) acc = fmaf(gs[r * D3 + c], w3k[(size_t)j * D3 + c], acc);
+      const bool live = r < rows && h2[(row + r) * D2 + j] > 0.f;
+      const float v = __fmul_rn(acc, live ? 1.f : 0.f);
+      d2s[r * D2 + j] = v;
+      if (r < rows) dh2[(row + r) * D2 + j] = v;
+    }
+  }
+  __syncthreads();
+  const float* w2k = w2 + (size_t)k * D1 * D2;
+  for (int j = threadIdx.x; j < D1; j += blockDim.x) {
+    for (int r = 0; r < rows; ++r) {
+      float acc = 0.f;
+      for (int i = 0; i < D2; ++i) acc = fmaf(d2s[r * D2 + i], w2k[(size_t)j * D2 + i], acc);
+      const bool live = h1[(row + r) * D1 + j] > 0.f;
+      dh1[(row + r) * D1 + j] = __fmul_rn(acc, live ? 1.f : 0.f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fc_chain_bwd, pass 2: every product that reduces over the batch (dW1,
+// dW2, dW3, db1..3) or over D1 (dx = dh1 W1^T), one thread per output
+// element, each sum sequential in a fixed order.  The flat index space is
+// the concatenation [dW1 | dx | dW2 | dW3 | db1 | db2 | db3].
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+fc_bwd_grad_kernel(const float* __restrict__ x, const float* __restrict__ h1,
+                   const float* __restrict__ h2, const float* __restrict__ g,
+                   const float* __restrict__ dh1,
+                   const float* __restrict__ dh2,
+                   const float* __restrict__ w1, float* __restrict__ dw1,
+                   float* __restrict__ db1, float* __restrict__ dw2,
+                   float* __restrict__ db2, float* __restrict__ dw3,
+                   float* __restrict__ db3, float* __restrict__ dx, int K,
+                   int B, int F, int D1, int D2, int D3) {
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n_w1 = (long long)K * F * D1, n_x = (long long)K * B * F;
+  const long long n_w2 = (long long)K * D1 * D2, n_w3 = (long long)K * D2 * D3;
+  if (t < n_w1) {  // dW1[k, f, j] = sum_b x[k,b,f] dh1[k,b,j]
+    const int j = (int)(t % D1);
+    const long long r = t / D1;
+    const int f = (int)(r % F), k = (int)(r / F);
+    float acc = 0.f;
+    for (int b = 0; b < B; ++b) {
+      const size_t row = (size_t)k * B + b;
+      acc = fmaf(x[row * F + f], dh1[row * D1 + j], acc);
+    }
+    dw1[t] = acc;
+    return;
+  }
+  t -= n_w1;
+  if (t < n_x) {  // dx[k, b, f] = sum_j dh1[k,b,j] W1[k,f,j]
+    const int f = (int)(t % F);
+    const size_t row = (size_t)(t / F);
+    const int k = (int)(row / B);
+    const float* wr = w1 + ((size_t)k * F + f) * D1;
+    const float* dr = dh1 + row * D1;
+    float acc = 0.f;
+    for (int j = 0; j < D1; ++j) acc = fmaf(dr[j], wr[j], acc);
+    dx[t] = acc;
+    return;
+  }
+  t -= n_x;
+  if (t < n_w2) {  // dW2[k, i, j] = sum_b h1[k,b,i] dh2[k,b,j]
+    const int j = (int)(t % D2);
+    const long long r = t / D2;
+    const int i = (int)(r % D1), k = (int)(r / D1);
+    float acc = 0.f;
+    for (int b = 0; b < B; ++b) {
+      const size_t row = (size_t)k * B + b;
+      acc = fmaf(h1[row * D1 + i], dh2[row * D2 + j], acc);
+    }
+    dw2[t] = acc;
+    return;
+  }
+  t -= n_w2;
+  if (t < n_w3) {  // dW3[k, i, c] = sum_b h2[k,b,i] g[k,b,c]
+    const int c = (int)(t % D3);
+    const long long r = t / D3;
+    const int i = (int)(r % D2), k = (int)(r / D2);
+    float acc = 0.f;
+    for (int b = 0; b < B; ++b) {
+      const size_t row = (size_t)k * B + b;
+      acc = fmaf(h2[row * D2 + i], g[row * D3 + c], acc);
+    }
+    dw3[t] = acc;
+    return;
+  }
+  t -= n_w3;
+  // bias grads: column sums over the batch
+  const float* src;
+  float* dst;
+  int D;
+  if (t < (long long)K * D1) {
+    src = dh1; dst = db1; D = D1;
+  } else if ((t -= (long long)K * D1) < (long long)K * D2) {
+    src = dh2; dst = db2; D = D2;
+  } else if ((t -= (long long)K * D2) < (long long)K * D3) {
+    src = g; dst = db3; D = D3;
+  } else {
+    return;
+  }
+  const int j = (int)(t % D), k = (int)(t / D);
+  float acc = 0.f;
+  for (int b = 0; b < B; ++b) acc = __fadd_rn(acc, src[((size_t)k * B + b) * D + j]);
+  dst[t] = acc;
+}
+
+inline unsigned blocks_for(long long n, int threads) {
+  return (unsigned)((n + threads - 1) / threads);
+}
+
+}  // namespace
+
+API const char* fcnn_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+API int fcnn_conv_pool_fwd(const float* x, const float* w, const float* b,
+                           float* a, float* pat, float* eq, float* relu_m,
+                           int K, int B, int H, int W, int C, int O,
+                           int write_res, void* stream) {
+  const size_t smem = (size_t)(9 * C * O + O) * sizeof(float);
+  int rc = set_smem((const void*)conv_pool_fwd_kernel, smem);
+  if (rc) return rc;
+  dim3 grid(blocks_for((long long)B * (H / 2) * (W / 2) * O, kThreads), K);
+  conv_pool_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      x, w, b, a, pat, eq, relu_m, B, H, W, C, O, write_res);
+  return (int)cudaGetLastError();
+}
+
+API int fcnn_conv_bwd_partial(const float* pat, const float* eq,
+                              const float* relu_m, const float* da, float* dz,
+                              float* part, int K, int B, int H, int W, int C,
+                              int O, int R, int nchunks, void* stream) {
+  const size_t smem = (size_t)R * (9 * C + O) * sizeof(float);
+  int rc = set_smem((const void*)conv_bwd_partial_kernel, smem);
+  if (rc) return rc;
+  dim3 grid(nchunks, K);
+  conv_bwd_partial_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      pat, eq, relu_m, da, dz, part, B, H, W, C, O, R, nchunks);
+  return (int)cudaGetLastError();
+}
+
+API int fcnn_conv_bwd_finish(const float* part, const float* dz,
+                             const float* da, const float* relu_m,
+                             const float* w, float* dw, float* db, float* dx,
+                             int K, int B, int H, int W, int C, int O,
+                             int nchunks, void* stream) {
+  const long long n_dx = dx ? (long long)K * B * H * W * C : 0;
+  const unsigned grid = (unsigned)K + blocks_for(n_dx, kThreads);
+  conv_bwd_finish_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      part, dz, da, relu_m, w, dw, db, dx, K, B, H, W, C, O, nchunks);
+  return (int)cudaGetLastError();
+}
+
+API int fcnn_fc_fwd(const float* x, const float* w1, const float* b1,
+                    const float* w2, const float* b2, const float* w3,
+                    const float* b3, float* out, float* h1, float* h2, int K,
+                    int B, int F, int D1, int D2, int D3, void* stream) {
+  const size_t smem = (size_t)kFcRows * (F + D1 + D2) * sizeof(float);
+  int rc = set_smem((const void*)fc_fwd_kernel, smem);
+  if (rc) return rc;
+  dim3 grid(blocks_for(B, kFcRows), K);
+  fc_fwd_kernel<<<grid, kFcThreads, smem, (cudaStream_t)stream>>>(
+      x, w1, b1, w2, b2, w3, b3, out, h1, h2, B, F, D1, D2, D3);
+  return (int)cudaGetLastError();
+}
+
+API int fcnn_fc_bwd_act(const float* g, const float* h1, const float* h2,
+                        const float* w2, const float* w3, float* dh1,
+                        float* dh2, int K, int B, int D1, int D2, int D3,
+                        void* stream) {
+  const size_t smem = (size_t)kFcRows * (D3 + D2) * sizeof(float);
+  int rc = set_smem((const void*)fc_bwd_act_kernel, smem);
+  if (rc) return rc;
+  dim3 grid(blocks_for(B, kFcRows), K);
+  fc_bwd_act_kernel<<<grid, kFcThreads, smem, (cudaStream_t)stream>>>(
+      g, h1, h2, w2, w3, dh1, dh2, B, D1, D2, D3);
+  return (int)cudaGetLastError();
+}
+
+API int fcnn_fc_bwd_grad(const float* x, const float* h1, const float* h2,
+                         const float* g, const float* dh1, const float* dh2,
+                         const float* w1, float* dw1, float* db1, float* dw2,
+                         float* db2, float* dw3, float* db3, float* dx, int K,
+                         int B, int F, int D1, int D2, int D3, void* stream) {
+  const long long n = (long long)K * F * D1 + (long long)K * B * F +
+                      (long long)K * D1 * D2 + (long long)K * D2 * D3 +
+                      (long long)K * (D1 + D2 + D3);
+  fc_bwd_grad_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      x, h1, h2, g, dh1, dh2, w1, dw1, db1, dw2, db2, dw3, db3, dx, K, B, F,
+      D1, D2, D3);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,35 @@
+"""Helpers for param trees: nested ``dict``s with tensor leaves.
+
+Counterpart of the pytree helpers the slice needs from ``repro/utils/tree.py``
+and ``repro/models/module.py``.  Keys are walked in sorted order, the order
+``jax.tree_util`` uses for dicts, so a reduction over the leaves (a global
+norm, say) adds them in the same order in both packages.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+import torch
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_lerp(a: Any, b: Any, w) -> Any:
+    """(1-w)*a + w*b, leafwise."""
+    return tree_map(lambda x, y: (1.0 - w) * x + w * y, a, b)
+
+
+def tree_clone(tree: Any) -> Any:
+    return tree_map(torch.clone, tree)

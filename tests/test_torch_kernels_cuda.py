@@ -1,0 +1,252 @@
+"""The fused-CNN CUDA kernels against their plain twins on the card, and the
+port's import hygiene.
+
+The kernel tests need an NVIDIA card (marker ``cuda``): they skip, with a
+reason, where ``torch.cuda.is_available()`` is False; on the card run them
+with ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py``.
+They use the shapes ``chip_smoke.py`` checks: the main path's cohort (K=10,
+B=10, both conv layers), an odd cohort (K=3, B=7), the eval shape (K=1,
+B=1000) and an all-ones pool-tie cohort.  The conv forward sums in the
+twin's order, so its outputs and masks must be equal; everything else
+agrees to 1e-5 of the largest magnitude (summation order only).
+
+The hygiene tests run everywhere: the port imports neither JAX nor the JAX
+package, and an entry point given no device refuses to run without a card.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+RTOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _cohort(k, bs, seed, device, ones=False):
+    from repro_torch.data.synthetic import make_digits
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.utils.tree import tree_map
+    params = tree_map(lambda *ls: torch.stack(ls).to(device),
+                      *[init_cnn(seed + i, "cpu") for i in range(k)])
+    if ones:
+        x = torch.ones((k, bs, 28, 28, 1))
+    else:
+        x = torch.from_numpy(make_digits(k * bs, seed=seed).x).reshape(
+            k, bs, 28, 28, 1)
+    return params, x.to(device)
+
+
+def _close(got, want):
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max())
+    assert err <= RTOL * scale, (err, scale)
+
+
+COHORTS = [(10, 10, False), (3, 7, False), (3, 2, True)]
+IDS = ["main-K10-B10", "odd-K3-B7", "ones-tie-K3-B2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bs,ones", COHORTS, ids=IDS)
+def test_conv_pool_kernels_match_twins(cuda, k, bs, ones):
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    params, x = _cohort(k, bs, 0, cuda, ones)
+    inp = x
+    for layer in ("conv1", "conv2"):
+        w, b = params[layer]["w"], params[layer]["b"]
+        ak, rk = knl.conv_pool_fwd_k(inp, w, b)
+        ap, rp = ref.conv_pool_fwd_k(inp, w, b)
+        torch.testing.assert_close(ak, ap, rtol=0, atol=0)
+        for got, want in zip(rk, rp):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        da = torch.randn(ap.shape, device=cuda) * 0.01
+        for need_dx in (False, True):
+            for got, want in zip(knl.conv_pool_bwd_k(rp, w, da, need_dx),
+                                 ref.conv_pool_bwd_k(rp, w, da, need_dx)):
+                if want is None:
+                    assert got is None
+                else:
+                    _close(got, want)
+        inp = ap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bs,ones", COHORTS, ids=IDS)
+def test_fc_chain_kernels_match_twins(cuda, k, bs, ones):
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    params, _ = _cohort(k, bs, 1, cuda, ones)
+    flat = torch.relu(torch.randn((k, bs, 784), device=cuda))
+    lk, rk = knl.fc_chain_fwd_k(flat, params)
+    lp, rp = ref.fc_chain_fwd_k(flat, params)
+    for got, want in zip((lk, *rk), (lp, *rp)):
+        _close(got, want)
+    g = torch.randn((k, bs, 10), device=cuda) * 0.1
+    gk, dk = knl.fc_chain_bwd_k(flat, rp, params, g)
+    gp, dp = ref.fc_chain_bwd_k(flat, rp, params, g)
+    _close(dk, dp)
+    for layer in gp:
+        for leaf in gp[layer]:
+            _close(gk[layer][leaf], gp[layer][leaf])
+
+
+@pytest.mark.cuda
+def test_training_step_through_kernels_matches_twins(cuda):
+    """A whole step's forward and backward through the kernels against the
+    twins' composition, with the image gradient."""
+    from repro_torch.kernels.fused_cnn import ops, ref
+    params, x = _cohort(10, 10, 3, cuda)
+    g = torch.randn((10, 10, 10), device=cuda) * 0.1
+    lk, rk = ops.forward_fwd_k(params, x)
+    lp, rp = ref.forward_fwd_ref_k(params, x)
+    _close(lk, lp)
+    gk, dxk = ops.backward_k(params, rp, g, need_dx=True)
+    gp, dxp = ref.backward_ref_k(params, rp, g, need_dx=True)
+    _close(dxk, dxp)
+    for layer in gp:
+        for leaf in gp[layer]:
+            _close(gk[layer][leaf], gp[layer][leaf])
+
+
+@pytest.mark.cuda
+def test_eval_shape_and_launch_counts(cuda):
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    params, x = _cohort(1, 1000, 2, cuda)
+    knl.reset_launches()
+    a1k, none = knl.conv_pool_fwd_k(x, params["conv1"]["w"],
+                                    params["conv1"]["b"], residuals=False)
+    assert none is None
+    a1p, _ = ref.conv_pool_fwd_k(x, params["conv1"]["w"],
+                                 params["conv1"]["b"], residuals=False)
+    torch.testing.assert_close(a1k, a1p, rtol=0, atol=0)
+    lk, _ = knl.fc_chain_fwd_k(torch.relu(torch.randn((1, 1000, 784),
+                                                      device=cuda)), params)
+    assert knl.LAUNCHES["conv_pool_fwd_k"] == 1
+    assert knl.LAUNCHES["fc_chain_fwd_k"] == 1
+    # a CUDA tensor never takes the twin: a wrong dtype raises
+    with pytest.raises(TypeError, match="float32"):
+        knl.conv_pool_fwd_k(x.double(), params["conv1"]["w"],
+                            params["conv1"]["b"])
+
+
+@pytest.mark.cuda
+def test_round_on_card_matches_cpu(cuda):
+    from repro_torch.core.hsfl import HSFLConfig, HSFLSimulation
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = HSFLConfig(rounds=1, n_uavs=8, k_select=4, n_train=400,
+                     n_test=100, steps_per_epoch=2, local_epochs=3, seed=4)
+    p0 = init_cnn(0, "cpu")
+    out = []
+    for dev in (cuda, "cpu"):
+        sim = HSFLSimulation(cfg, device=dev)
+        sim.params = tree_map(lambda t: t.to(sim.device).clone(), p0)
+        log, _ = sim.run_round(1, [])
+        out.append(((log.arrived_final, log.used_snapshot, log.dropped,
+                     log.bytes_sent), [t.cpu() for t in
+                                       tree_leaves(sim.params)]))
+    assert out[0][0] == out[1][0]
+    for a, b in zip(out[0][1], out[1][1]):
+        assert float((a - b).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# import hygiene: runs everywhere
+# ---------------------------------------------------------------------------
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    bad = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                top = name.split(".")[0]
+                if top in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
+                               f"imports {name}")
+    assert not bad, "\n".join(bad)
+    assert len(_port_files()) > 20
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.core.hsfl, repro_torch.kernels._build, "
+            "repro_torch.kernels.fused_cnn.kernel\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n"
+            "assert 'triton' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
+    """``device=None`` means the card; without one it raises instead of
+    running on the CPU."""
+    from repro_torch.core.hsfl import HSFLConfig, HSFLSimulation, run_hsfl
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = HSFLConfig(rounds=1, n_uavs=4, k_select=2, n_train=100,
+                     n_test=20)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HSFLSimulation(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_hsfl(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    from repro_torch.models.cnn import init_cnn
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cnn(0)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert HSFLSimulation(cfg, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Without a card the smoke exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the refusal path is not taken")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch,
+                                                        tmp_path):
+    from repro_torch.kernels import _build
+    path = _build.library_path("fused_cnn")
+    assert path.parent == ROOT / "build" / "kernels"
+    assert path.name.startswith("fused_cnn-") and path.suffix == ".so"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.SOURCES["fused_cnn"].is_file()
+    # no nvcc on PATH and none under $CUDA_HOME/bin: a clear error
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.find_nvcc()
