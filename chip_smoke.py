@@ -7,21 +7,32 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. card: name and power limit from nvidia-smi, torch and CUDA versions.
    TF32 is switched off for matmuls and cuDNN, so every f32 product on the
    card (kernels and plain twins alike) runs in full f32;
-2. build: the fused-CNN kernels from the sources in this checkout (nvcc,
-   sm_90a);
-3. kernels vs their plain PyTorch twins on the card, at the main path's
-   shapes (K=10 users, batch 10, both conv layers), an odd cohort (K=3,
-   B=7), the eval shape (K=1, B=1000) and an all-ones pool-tie cohort;
-   each kernel's device time per training step (both conv layers' calls
-   for the conv kernels; torch.profiler) is printed beside its twin's and
-   its bound, and beside the wall time of back-to-back calls (CUDA events),
-   which the host's launch rate sets;
-4. the main path: ``HSFLSimulation`` at the paper's configuration on the
-   card, 5 rounds of opt (b=2) and 2 rounds of every other registered
-   scheme; the kernels' launch counts must equal what those rounds need;
-5. card vs CPU: 2 rounds of opt from the same seed and params on both;
-   counts must be identical and params and accuracy close;
-6. the card's line, the kernels' JSON line, and the result line.
+2. build: the fused-CNN and the delta-codec kernels from the sources in
+   this checkout, one nvcc each, in parallel (sm_90a);
+3. kernels vs their plain PyTorch twins on the card.  Fused CNN: the main
+   path's shapes (K=10 users, batch 10, both conv layers), an odd cohort
+   (K=3, B=7), the eval shape (K=1, B=1000) and an all-ones pool-tie
+   cohort.  Delta codec, bitwise: M = 2560 (the fused round's 256·10 rows)
+   and 217 (one tree), blocks 512 and 128, int8 and int4, with all-zero
+   rows and lanes on exact .5 quanta.  Each kernel's device time
+   (torch.profiler) is printed beside its twin's, its bound, the one
+   PyTorch call that computes the same function where there is one, and
+   the wall time of back-to-back calls (CUDA events);
+4. the fused path: ``HSFLSimulation`` at the paper's configuration, 5
+   rounds of opt (b=2) with and without the delta codec and 2 rounds of
+   every other registered scheme; every kernel's launch count must equal
+   what those rounds need (the codec: one quantize per probe epoch, one
+   dequantize per round);
+5. the serving path at the paper's configuration with the codec, through
+   ``repro_torch.launch.serve_fl.main``: (a) 4 rounds under the restart
+   supervisor with duplicated and corrupted uploads and a crash while
+   checkpointing round 3, (b) the same 4 rounds with no faults, (c) the
+   host engine alone.  The final params of (a), (b) and (c) must be
+   equal bit for bit, and the codec kernels must have launched;
+6. card vs CPU: 2 rounds of the fused opt round, of the fused codec round
+   and of the codec server from the same seed and params on both; counts
+   must be identical and params and accuracy close;
+7. the card's line, the kernels' JSON line, and the result line.
 
 It imports nothing of JAX.  Without a CUDA card it exits 2 and prints no
 result.
@@ -31,6 +42,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -49,7 +61,10 @@ DEVICE = "cuda"
 # forward sums in the twin's order, so its masks must agree exactly.
 KERNEL_RTOL = 1e-5
 # card vs CPU after 2 rounds x 24 SGD steps: per-step differences of
-# ~1e-7 accumulate through the updates, far below 1e-4
+# ~1e-7 accumulate through the updates, far below 1e-4.  With the codec a
+# 1e-7 difference may move one lane of a rescued snapshot across a .5
+# boundary, so codec runs add one quantization step: the largest scale
+# either side's codec produced
 PARAM_ATOL = 1e-4
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
@@ -61,11 +76,28 @@ REPLACES = {
     "conv_pool_bwd_k": "src/repro/kernels/fused_cnn/kernel.py:357",
     "fc_chain_fwd_k": "src/repro/kernels/fused_cnn/kernel.py:398",
     "fc_chain_bwd_k": "src/repro/kernels/fused_cnn/kernel.py:441",
+    "quantize_blocks": "src/repro/kernels/delta_codec/kernel.py:75",
+    "dequantize_blocks": "src/repro/kernels/delta_codec/kernel.py:92",
 }
-SOURCE = "src/repro_torch/kernels/fused_cnn/csrc/fused_cnn.cu"
+FUSED_CNN = ("conv_pool_fwd_k", "conv_pool_bwd_k", "fc_chain_fwd_k",
+             "fc_chain_bwd_k")
+CODEC = ("quantize_blocks", "dequantize_blocks")
+SOURCES = {**{n: "src/repro_torch/kernels/fused_cnn/csrc/fused_cnn.cu"
+              for n in FUSED_CNN},
+           **{n: "src/repro_torch/kernels/delta_codec/csrc/delta_codec.cu"
+              for n in CODEC}}
+# scratch for the serving phase's checkpoints (git-ignored)
+CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 # __global__ launches per wrapper call
 LAUNCHES_PER_CALL = {"conv_pool_fwd_k": 1, "conv_pool_bwd_k": 2,
                      "fc_chain_fwd_k": 1, "fc_chain_bwd_k": 2}
+
+
+def sync() -> None:
+    """Wait for the card (nothing to wait for on the CPU)."""
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
 
 
 def card_line() -> str:
@@ -135,7 +167,8 @@ def numel(*ts) -> int:
 
 
 def rel_err(got, want) -> tuple:
-    """(max abs error, max abs error / max |want|)."""
+    """(max abs error, max abs error / max |want|), in f64 (int8 q too)."""
+    got, want = got.double(), want.double()
     err = float((got - want).abs().max()) if got.numel() else 0.0
     scale = max(float(want.abs().max()) if want.numel() else 0.0, 1e-30)
     return err, err / scale
@@ -349,8 +382,95 @@ def time_kernels(k: int = 10, bs: int = 10, seed: int = 0) -> dict:
     return out
 
 
+def codec_input(m: int, block: int, bits: int, seed: int):
+    """Gaussian rows (deltas of ~1e-3), all-zero rows (row padding,
+    unchanged users) and rows whose lanes sit on exact k + 0.5 quanta of a
+    power-of-two scale, where rounding half to even shows."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    qmax = 2 ** (bits - 1) - 1
+    x = torch.randn((m, block), generator=g) * 1e-3
+    ties = list(range(3, m, 11))
+    zeros = [r for r in range(0, m, 7) if r not in set(ties)]
+    x[zeros] = 0.0
+    for r in ties:
+        sc = 2.0 ** -(8 + r % 5)
+        k = torch.randint(-qmax, qmax, (block - 1,), generator=g).float()
+        x[r, 0] = qmax * sc
+        x[r, 1:] = (k + 0.5) * sc
+    return x.to(DEVICE), zeros, ties
+
+
+def check_codec(chk: Check):
+    """Both codec kernels vs their twins on the card, bitwise, over the
+    shapes the paths use; the tie rows must round half to even."""
+    import torch
+    from repro_torch.kernels.delta_codec import kernel as knl, ref
+    for m in (2560, 217):
+        for block in (512, 128):
+            for bits in (8, 4):
+                x, zeros, ties = codec_input(m, block, bits,
+                                             m + block + bits)
+                label = f"M={m} block={block} int{bits}"
+                q, sc = knl.quantize_blocks(x, bits=bits)
+                qr, sr = ref.quantize_ref(x, bits)
+                chk.close("quantize_blocks", f"{label} q", q, qr, exact=True)
+                chk.close("quantize_blocks", f"{label} scales", sc, sr,
+                          exact=True)
+                d = knl.dequantize_blocks(qr, sr)
+                chk.close("dequantize_blocks", f"{label} x", d,
+                          ref.dequantize_ref(qr, sr), exact=True)
+                quot = x[ties, 1:] / sr[ties]
+                if not (bool(torch.all(quot - torch.floor(quot) == 0.5))
+                        and bool(torch.all(q[ties, 1:] % 2 == 0))
+                        and bool(torch.all(sr[zeros] == 1e-12))):
+                    raise AssertionError(f"codec {label}: ties or zero rows "
+                                         "not as constructed")
+
+
+def time_codec(m: int = 2560, block: int = 512, bits: int = 8) -> dict:
+    """Codec kernel vs twin vs library call at the fused round's shape."""
+    import torch
+    from repro_torch.kernels.delta_codec import kernel as knl, ref
+    x = torch.randn((m, block), device=DEVICE) * 1e-3
+    q, sc = ref.quantize_ref(x, bits)
+    nbytes = 4 * numel(x) + numel(q) + 4 * numel(sc)   # same for both
+    runs = {
+        "quantize_blocks": (lambda: knl.quantize_blocks(x, bits=bits),
+                            lambda: ref.quantize_ref(x, bits), None,
+                            # abs, max, multiply, divide, round, clip
+                            6.0 * m * block),
+        "dequantize_blocks": (lambda: knl.dequantize_blocks(q, sc),
+                              lambda: ref.dequantize_ref(q, sc),
+                              lambda: torch.mul(q, sc), 2.0 * m * block),
+    }
+    out = {}
+    for name, (kern, plain, lib, ops) in runs.items():
+        ms = device_ms(kern, iters=200)
+        plain_ms = device_ms(plain, iters=50)
+        lib_ms = None if lib is None else device_ms(lib, iters=200)
+        wall = cuda_ms(kern, iters=500)
+        b_ms, by = bound_ms(nbytes, ops)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by, "library_ms": lib_ms, "wall_ms": wall}
+        print(f"  {name:17s} M={m} block={block} int{bits}: kernel "
+              f"{ms * 1e3:8.2f} us  twin {plain_ms * 1e3:8.2f} us  library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:8.2f} us'}  "
+              f"bound {b_ms * 1e3:6.2f} us ({by}, {nbytes / 1e6:.2f} MB)  "
+              f"back-to-back wall {wall * 1e3:8.2f} us")
+    # one tree (the host engine's and the server's snapshots)
+    x1 = torch.randn((217, block), device=DEVICE) * 1e-3
+    q1, s1 = ref.quantize_ref(x1, bits)
+    print(f"  one tree (217 rows): quantize "
+          f"{device_ms(lambda: knl.quantize_blocks(x1, bits=bits), 200) * 1e3:.2f}"
+          f" us, dequantize "
+          f"{device_ms(lambda: knl.dequantize_blocks(q1, s1), 200) * 1e3:.2f}"
+          f" us")
+    return out
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the main path
+# phases 4 to 6: the paths
 # ---------------------------------------------------------------------------
 
 def run_rounds(cfg, device, params=None):
@@ -376,17 +496,41 @@ def run_rounds(cfg, device, params=None):
 
 
 def expected_launches(cfg, rows) -> dict:
-    """__global__ launches the rounds need: every trained round runs
-    e·S steps (2 conv fwd, 2 conv bwd, 1 fc fwd, 1 fc bwd calls each), and
-    every eval 2 conv fwd + 1 fc fwd calls."""
-    steps = sum(cfg.local_epochs * cfg.steps_per_epoch
-                for r in rows if r[0] > 0)
+    """Kernel launches the rounds need: every trained round runs e·S steps
+    (2 conv fwd, 2 conv bwd, 1 fc fwd, 1 fc bwd calls each), and every eval
+    2 conv fwd + 1 fc fwd calls; with the codec every trained round
+    quantizes once per probe epoch and dequantizes once (probing
+    schemes)."""
+    from repro_torch.core.schemes import get_scheme
+    trained = sum(1 for r in rows if r[0] > 0)
+    steps = trained * cfg.local_epochs * cfg.steps_per_epoch
     evals = len(rows)
     calls = {"conv_pool_fwd_k": 2 * steps + 2 * evals,
              "conv_pool_bwd_k": 2 * steps,
              "fc_chain_fwd_k": steps + evals,
              "fc_chain_bwd_k": steps}
-    return {n: c * LAUNCHES_PER_CALL[n] for n, c in calls.items()}
+    out = {n: c * LAUNCHES_PER_CALL[n] for n, c in calls.items()}
+    scheme = get_scheme(cfg.scheme)
+    probes = len(scheme.static_schedule(cfg.local_epochs, cfg.b,
+                                        cfg.schedule_override))
+    codec = cfg.use_delta_codec
+    out["quantize_blocks"] = trained * probes if codec else 0
+    out["dequantize_blocks"] = trained if codec and scheme.uses_probes \
+        else 0
+    return out
+
+
+def reset_all_launches():
+    from repro_torch.kernels.delta_codec import kernel as dk
+    from repro_torch.kernels.fused_cnn import kernel as fk
+    fk.reset_launches()
+    dk.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels.delta_codec import kernel as dk
+    from repro_torch.kernels.fused_cnn import kernel as fk
+    return {**fk.LAUNCHES, **dk.LAUNCHES}
 
 
 def params_finite(params) -> bool:
@@ -404,37 +548,39 @@ def print_rounds(label: str, rows, times):
 
 
 def main_path():
-    """Paper-config rounds on the card for every registered scheme; returns
-    the launch counts of this run."""
+    """Paper-config fused rounds on the card for every registered scheme,
+    and opt with the delta codec; returns the launch counts of this run."""
     from repro_torch.core.hsfl import HSFLConfig
     from repro_torch.core.schemes import registered_schemes
-    from repro_torch.kernels.fused_cnn import kernel as knl
-    runs = [("opt", 5)] + [(s, 2) for s in registered_schemes() if s != "opt"]
-    want = {n: 0 for n in knl.LAUNCHES}
-    knl.reset_launches()
-    for scheme, rounds in runs:
+    runs = [("opt", 5, False), ("opt", 5, True)] + [
+        (s, 2, False) for s in registered_schemes() if s != "opt"]
+    want = {n: 0 for n in REPLACES}
+    reset_all_launches()
+    for scheme, rounds, codec in runs:
         b = 2 if scheme in ("opt", "deadline") or scheme.startswith("opt_") \
             else 1
-        cfg = HSFLConfig(rounds=rounds, scheme=scheme, b=b)
+        cfg = HSFLConfig(rounds=rounds, scheme=scheme, b=b,
+                         use_delta_codec=codec)
+        label = f"{scheme}(b={b}{', codec' if codec else ''})"
         sim, rows, times = run_rounds(cfg, DEVICE)
-        print_rounds(f"{scheme}(b={b})", rows, times)
+        print_rounds(label, rows, times)
         if not params_finite(sim.params):
-            raise AssertionError(f"{scheme}: non-finite params")
+            raise AssertionError(f"{label}: non-finite params")
         for n, c in expected_launches(cfg, rows).items():
             want[n] += c
         if scheme == "opt" and not rows[-1][7] > 0.1:
-            raise AssertionError(f"opt accuracy {rows[-1][7]} is not above "
-                                 "chance (0.1) after 5 rounds")
+            raise AssertionError(f"{label} accuracy {rows[-1][7]} is not "
+                                 "above chance (0.1) after 5 rounds")
         if scheme == "opt":
             steady = times[1:]
-            print(f"  opt ms/round (rounds 2-5): median "
+            print(f"  {label} ms/round (rounds 2-5): median "
                   f"{float(np.median(steady)):.1f}, min {min(steady):.1f}")
-    got = dict(knl.LAUNCHES)
+    got = all_launches()
     print(f"  launches: {got}")
     if got != want:
         raise AssertionError(f"launch counts {got} != expected {want}")
     if min(got.values()) <= 0:
-        raise AssertionError("a kernel of the main path never launched")
+        raise AssertionError("a kernel of the fused path never launched")
     return got
 
 
@@ -471,30 +617,202 @@ def device_busy_share():
     return share
 
 
+SERVE_FAULTS = "dup@r1:c*; corrupt@r2:c*; crash@r3:checkpoint"
+
+
+def final_params(ckpt_dir: str):
+    """The params of the newest committed checkpoint of an opt server."""
+    from repro_torch.checkpoint.msgpack_ckpt import (latest_step,
+                                                     restore_checkpoint)
+    from repro_torch.models.cnn import init_cnn
+    step = latest_step(ckpt_dir)
+    like = {"params": init_cnn(0, DEVICE), "delayed": [],
+            "fleet_pos": np.zeros((30, 3)), "fleet_kdb": np.zeros(30),
+            "fleet_bad": np.zeros(30, bool)}
+    return step, restore_checkpoint(ckpt_dir, step, like)["params"]
+
+
+def serving_path(rounds: int = 4):
+    """The codec server at the paper config through the launcher: (a)
+    faults and a crash under the supervisor, (b) no faults, (c) the host
+    engine alone; all three must end with equal params.  Returns the codec
+    launches of this run and the ms per round of (b) and (c)."""
+    import torch
+    from repro_torch.core.hsfl import HSFLConfig, HSFLSimulation
+    from repro_torch.launch import serve_fl
+    from repro_torch.utils.tree import tree_leaves
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    args = ["--device", DEVICE, "--codec", "--rounds", str(rounds),
+            "--quiet"]
+    reset_all_launches()
+    params, ms = {}, {}
+    for label, extra in (("a", ["--faults", SERVE_FAULTS]), ("b", [])):
+        d = os.path.join(CKPT_DIR, label)
+        sync()
+        t0 = time.perf_counter()
+        rc = serve_fl.main(args + ["--ckpt-dir", d] + extra)
+        sync()
+        ms[label] = (time.perf_counter() - t0) * 1e3 / rounds
+        step, params[label] = final_params(d)
+        if rc != 0 or step != rounds:
+            raise AssertionError(f"serve_fl ({label}) returned {rc}, "
+                                 f"last committed step {step}")
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            for row in map(json.loads, f):
+                print(f"  ({label}) round {row['round']}: arrived="
+                      f"{row['arrived_final']} rescued={row['used_snapshot']}"
+                      f" dropped={row['dropped']} dup_rejected="
+                      f"{row['duplicates_rejected']} corrupt_rejected="
+                      f"{row['corrupt_rejected']} retries={row['retries']} "
+                      f"bytes={row['bytes_sent']:.0f} test_acc="
+                      f"{row['test_acc']:.4f}")
+    sim = HSFLSimulation(HSFLConfig(rounds=rounds, use_delta_codec=True,
+                                    use_fused_round=False), DEVICE)
+    times = []
+    for t in range(1, rounds + 1):
+        sync()
+        t0 = time.perf_counter()
+        sim.run_round(t, [])
+        sim.evaluate()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms["c"] = float(np.median(times[1:]))
+    params["c"] = sim.params
+    got = {n: all_launches()[n] for n in CODEC}
+    print(f"  (a) faults {SERVE_FAULTS!r} under the supervisor: "
+          f"{ms['a']:.1f} ms/round (restart and replay included); (b) no "
+          f"faults: {ms['b']:.1f} ms/round; (c) host engine: rounds "
+          + ", ".join(f"{x:.1f}" for x in times) + " ms")
+    print(f"  codec launches over (a)-(c): {got}")
+    for other in ("b", "c"):
+        for x, y in zip(tree_leaves(params["a"]), tree_leaves(params[other])):
+            if not torch.equal(x, y):
+                raise AssertionError(f"serving (a) and ({other}) params "
+                                     "differ")
+    print("  final params of (a), (b) and (c) are equal bit for bit")
+    if not params_finite(params["a"]):
+        raise AssertionError("serving: non-finite params")
+    if min(got.values()) <= 0:
+        raise AssertionError("a codec kernel never launched on the serving "
+                             "path")
+    return got, ms
+
+
+def serving_busy_share():
+    """Wall time and device busy share of one steady server round (train,
+    probes through the codec, msgpack uploads, aggregation, eval)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.hsfl import HSFLConfig
+    from repro_torch.serving.fl_server import FLServer
+    server = FLServer(HSFLConfig(rounds=3, use_delta_codec=True), device=DEVICE)
+    server.step()
+    sync()
+    t0 = time.perf_counter()
+    server.step()
+    sync()
+    wall_plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.step()
+        sync()
+        wall = time.perf_counter() - t0
+    dev_us = _device_us(prof)
+    if dev_us <= 0:
+        print("  profiler: no device time recorded (busy share not measured)")
+        return wall_plain * 1e3, None
+    share = dev_us / 1e6 / wall
+    print(f"  server round 2: wall {wall_plain * 1e3:.1f} ms; round 3 under "
+          f"the profiler: wall {wall * 1e3:.1f} ms, device busy "
+          f"{dev_us / 1e3:.2f} ms -> busy share {share:.3f}, idle share "
+          f"{1 - share:.3f}")
+    dev = lambda e: float(getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0)))
+    for ev in sorted(prof.key_averages(), key=dev, reverse=True)[:10]:
+        print(f"    {dev(ev) / 1e3:8.3f} ms  x{ev.count:5d}  {ev.key[:70]}")
+    return wall_plain * 1e3, share
+
+
+class ScaleSpy:
+    """Records the largest scale the codec produces while active (the
+    quantization step that bounds a .5-boundary flip)."""
+
+    def __enter__(self):
+        from repro_torch.core import fused_round
+        from repro_torch.kernels.delta_codec import ops
+        self.mods, self.orig, self.max = (fused_round, ops), \
+            ops.quantize_blocks, 0.0
+
+        def spy(x, bits=8):
+            q, sc = self.orig(x, bits=bits)
+            self.max = max(self.max, float(sc.max()))
+            return q, sc
+
+        for mod in self.mods:
+            mod.quantize_blocks = spy
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.quantize_blocks = self.orig
+
+
+def compare(label: str, rows_g, rows_c, params_g, params_c, tol: float,
+            n_test: int):
+    from repro_torch.utils.tree import tree_leaves
+    print_rounds(f"{label} card", rows_g, [0.0] * len(rows_g))
+    print_rounds(f"{label} cpu ", rows_c, [0.0] * len(rows_c))
+    if [r[:6] for r in rows_g] != [r[:6] for r in rows_c]:
+        raise AssertionError(f"{label}: card and CPU counts differ")
+    diff = max(float((g.cpu() - c).abs().max()) for g, c in zip(
+        tree_leaves(params_g), tree_leaves(params_c)))
+    dacc = max(abs(g[7] - c[7]) for g, c in zip(rows_g, rows_c))
+    print(f"  {label}: max |param card - param cpu| = {diff:.3e} (tol "
+          f"{tol:.3e}); max |acc diff| = {dacc:.4f} (tol {1 / n_test})")
+    if not diff <= tol:
+        raise AssertionError(f"{label}: card vs CPU params differ by {diff}")
+    if not dacc <= 1.0 / n_test + 1e-9:
+        raise AssertionError(f"{label}: card vs CPU accuracy differs by "
+                             f"{dacc}")
+
+
+def serve_rows(cfg, device, p0):
+    """``cfg.rounds`` rounds of the server from params p0."""
+    from repro_torch.serving.fl_server import FLServer
+    from repro_torch.utils.tree import tree_map
+    server = FLServer(cfg, device=device)
+    server.sim.params = tree_map(lambda t: t.to(server.sim.device).clone(),
+                                 p0)
+    log = server.serve()
+    return server.params, [(r.selected, r.arrived_final, r.used_snapshot,
+                            r.delayed, r.dropped, r.bytes_sent, r.test_loss,
+                            r.test_acc) for r in log.rounds]
+
+
 def card_vs_cpu():
-    """2 opt rounds from one seed and one set of params on the card and on
-    the CPU: identical counts, params within PARAM_ATOL, accuracy within
-    one test image."""
+    """2 rounds from one seed and one set of params on the card and on the
+    CPU, for the fused opt round, the fused codec round and the codec
+    server: identical counts, params within PARAM_ATOL (plus one
+    quantization step with the codec), accuracy within one test image."""
     from repro_torch.core.hsfl import HSFLConfig
     from repro_torch.models.cnn import init_cnn
     cfg = HSFLConfig(rounds=2, scheme="opt", b=2)
     p0 = init_cnn(cfg.seed, "cpu")
     sim_g, rows_g, _ = run_rounds(cfg, DEVICE, p0)
     sim_c, rows_c, _ = run_rounds(cfg, "cpu", p0)
-    print_rounds("card", rows_g, [0.0] * len(rows_g))
-    print_rounds("cpu ", rows_c, [0.0] * len(rows_c))
-    if [r[:6] for r in rows_g] != [r[:6] for r in rows_c]:
-        raise AssertionError("card and CPU counts differ")
-    from repro_torch.utils.tree import tree_leaves
-    diff = max(float((g.cpu() - c).abs().max()) for g, c in zip(
-        tree_leaves(sim_g.params), tree_leaves(sim_c.params)))
-    dacc = max(abs(g[7] - c[7]) for g, c in zip(rows_g, rows_c))
-    print(f"  max |param card - param cpu| = {diff:.3e} (tol {PARAM_ATOL}); "
-          f"max |acc diff| = {dacc:.4f} (tol {1 / cfg.n_test})")
-    if not diff <= PARAM_ATOL:
-        raise AssertionError(f"card vs CPU params differ by {diff}")
-    if not dacc <= 1.0 / cfg.n_test + 1e-9:
-        raise AssertionError(f"card vs CPU accuracy differs by {dacc}")
+    compare("fused", rows_g, rows_c, sim_g.params, sim_c.params, PARAM_ATOL,
+            cfg.n_test)
+    cfg = HSFLConfig(rounds=2, scheme="opt", b=2, use_delta_codec=True)
+    with ScaleSpy() as spy:
+        sim_g, rows_g, _ = run_rounds(cfg, DEVICE, p0)
+        sim_c, rows_c, _ = run_rounds(cfg, "cpu", p0)
+    compare("fused codec", rows_g, rows_c, sim_g.params, sim_c.params,
+            PARAM_ATOL + spy.max, cfg.n_test)
+    with ScaleSpy() as spy:
+        par_g, rows_g = serve_rows(cfg, DEVICE, p0)
+        par_c, rows_c = serve_rows(cfg, "cpu", p0)
+    compare("server codec", rows_g, rows_c, par_g, par_c,
+            PARAM_ATOL + spy.max, cfg.n_test)
 
 
 def main() -> int:
@@ -521,7 +839,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.find_nvcc()})")
+          f"(nvcc {_build.find_nvcc()}, one process per source)")
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log")
         if log.is_file():
@@ -535,29 +853,43 @@ def main() -> int:
     check_case(chk, "main path", 10, 10, seed=0)
     check_case(chk, "odd cohort", 3, 7, seed=1)
     check_case(chk, "all-ones ties", 3, 2, seed=2, ones=True)
+    check_codec(chk)
     torch.cuda.synchronize()
     timing = time_kernels()
+    timing.update(time_codec())
+    print("  quantize_blocks has no library yardstick: no single PyTorch "
+          "call does the row absmax, the scale, the rounding and the clip")
 
-    print("== phase 4: main path (paper config, every scheme)")
+    print("== phase 4: fused path (paper config, every scheme, codec)")
     launches = main_path()
     share = device_busy_share()
 
-    print("== phase 5: card vs CPU")
+    print("== phase 5: serving path (paper config, codec, faults, crash)")
+    codec_launches, serve_ms = serving_path()
+    launches.update(codec_launches)
+    serve_round_ms, serve_share = serving_busy_share()
+
+    print("== phase 6: card vs CPU")
     card_vs_cpu()
 
-    rows = [{"name": n, "route": "cuda", "source": SOURCE,
+    rows = [{"name": n, "route": "cuda", "source": SOURCES[n],
              "replaces": REPLACES[n], "launches": launches[n],
              "max_abs_err": chk.err[n], "ms": timing[n]["ms"],
              "plain_ms": timing[n]["plain_ms"],
              "bound_ms": timing[n]["bound_ms"],
-             "bound_by": timing[n]["bound_by"], "library_ms": None}
+             "bound_by": timing[n]["bound_by"],
+             "library_ms": timing[n].get("library_ms")}
             for n in REPLACES]
     for r in rows:
         if not all(isinstance(r[key], (int, float)) and math.isfinite(r[key])
                    for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
             raise AssertionError(f"non-finite number in {r}")
-    print(f"device busy share (one opt round + eval): "
+    print(f"device busy share (one fused opt round + eval): "
           f"{'not measured' if share is None else f'{share:.4f}'}")
+    print(f"serving round (codec, paper config): {serve_round_ms:.1f} ms "
+          f"wall, device busy share "
+          f"{'not measured' if serve_share is None else f'{serve_share:.4f}'}"
+          f"; launcher {serve_ms['b']:.1f} ms/round without faults")
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,7 @@ only; modules of ``repro`` that it needs are copied, never imported.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"`` (``repro_torch.device.resolve_device``): there is no
-silent CPU fallback.  On a CUDA tensor every fused-CNN wrapper launches its
-hand-written kernel (``kernels/fused_cnn/csrc``); on a CPU tensor it runs
-the kernel's plain PyTorch twin (``kernels/fused_cnn/ref.py``).
+silent CPU fallback.  On a CUDA tensor every kernel wrapper (fused CNN,
+delta codec) launches its hand-written kernel (``kernels/*/csrc``); on a
+CPU tensor it runs the kernel's plain PyTorch twin (``kernels/*/ref.py``).
 """

@@ -10,7 +10,12 @@ device:
     (``kernels/fused_cnn/ops.make_stacked_epoch_fn``);
   - the OPT probe decisions run at the static probe epochs through
     ``opportunistic_sync.snapshot_decision``;
-  - the scheme's final-arrival predicate and aggregate close the round.
+  - the scheme's final-arrival predicate and aggregate close the round;
+  - with ``use_codec`` the snapshot state is the delta codec's
+    ``(q (K, M, block) int8, scales (K, M, 1) f32)``: every probe epoch
+    quantizes all K users' deltas from the round-start params in one
+    ``quantize_blocks`` launch, and the aggregation dequantizes the state
+    once, so a rescued snapshot carries the codec's quantization noise.
 
 Every control decision is a (K,) tensor op in f32, as in the reference, so
 both packages decide the same for the same presampled channel.  The
@@ -24,7 +29,11 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.core.opportunistic_sync import snapshot_decision
-from repro_torch.core.schemes import get_scheme, tree_where_k
+from repro_torch.core.schemes import get_scheme, kx, tree_where_k
+from repro_torch.kernels.delta_codec.kernel import (BLOCK, dequantize_blocks,
+                                                    quantize_blocks)
+from repro_torch.kernels.delta_codec.ops import (stacked_flatten,
+                                                 stacked_unflatten)
 from repro_torch.kernels.fused_cnn.ops import (ForwardPolicy,
                                                make_stacked_epoch_fn)
 from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
@@ -46,10 +55,40 @@ def _assign_(dst, src) -> None:
         d.copy_(s)
 
 
+def _codec_encode(stacked, params, block: int = BLOCK, bits: int = 8):
+    """Quantize the stacked users' delta from the round-start params into
+    the codec state ``(q (K, M, block), scales (K, M, 1))``: one launch
+    over the ``(K·M, block)`` rows."""
+    delta = tree_map(lambda s, p: s - p.unsqueeze(0), stacked, params)
+    flat, _ = stacked_flatten(delta, block=block)
+    k, rows, blk = flat.shape
+    q, s = quantize_blocks(flat.reshape(k * rows, blk), bits=bits)
+    return q.reshape(k, rows, blk), s.reshape(k, rows, 1)
+
+
+def _codec_decode(q, s, stacked_like, params):
+    """Dequantize the codec state back to a stacked params tree."""
+    k, rows, blk = q.shape
+    flat = dequantize_blocks(q.reshape(k * rows, blk),
+                             s.reshape(k * rows, 1))
+    delta = stacked_unflatten(flat.reshape(k, rows, blk), stacked_like)
+    return tree_map(lambda d, p: p.unsqueeze(0) + d, delta, params)
+
+
+def _codec_zero_state(stacked, block: int = BLOCK):
+    """All-zero codec state shaped for ``stacked`` (never aggregated before
+    a probe succeeds: ``has_snap`` gates it)."""
+    flat, _ = stacked_flatten(stacked, block=block)
+    return (torch.zeros(flat.shape, dtype=torch.int8, device=flat.device),
+            torch.zeros(flat.shape[:2] + (1,), dtype=torch.float32,
+                        device=flat.device))
+
+
 def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
                       lr: float, tau_max: float, probe_epochs: Tuple[int, ...],
                       async_weight: float = 0.0, use_codec: bool = False,
-                      k_carry: int = 0, forward: ForwardPolicy | None = None
+                      k_carry: int = 0, forward: ForwardPolicy | None = None,
+                      codec_block: int = BLOCK, codec_bits: int = 8
                       ) -> Callable:
     """One HSFL round for a fixed (scheme, e, steps, schedule).
 
@@ -66,11 +105,9 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
     where the reference donates those buffers to its jitted round, the port
     writes the round's result into them.  xs and ys must carry
     ``local_epochs`` epochs of ``steps_per_epoch`` steps.
+    ``codec_block``/``codec_bits`` are the delta codec's group width and
+    bit depth (``HSFLConfig.codec_block``/``codec_bits``).
     """
-    if use_codec:
-        raise NotImplementedError(
-            "the delta-codec snapshot path (use_codec=True) is not ported "
-            "yet (ROADMAP queue 1: delta codec)")
     if forward is None:
         forward = ForwardPolicy()
     if not isinstance(forward, ForwardPolicy):
@@ -99,7 +136,10 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
         nsent = torch.zeros(k, dtype=torch.int32, device=has_snap.device)
         # snapshots start as the round-start broadcast (weight 0 until a
         # probe succeeds)
-        snap = tree_clone(stacked) if scheme.uses_probes else None
+        if use_codec:
+            snap = _codec_zero_state(stacked, codec_block)
+        else:
+            snap = tree_clone(stacked) if scheme.uses_probes else None
         for e_t in range(1, local_epochs + 1):
             stacked = epoch_all(stacked, xs[e_t - 1], ys[e_t - 1])
             if e_t in probe_epochs:
@@ -108,7 +148,13 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
                 tau = chan["payload_bits"] / torch.clamp_min(rate, 1e-9)
                 ok, tau_extra = snapshot_decision(chan["valid"], outage,
                                                   tau, tau_extra)
-                snap = tree_where_k(ok, stacked, snap)
+                if use_codec:
+                    q_new, s_new = _codec_encode(stacked, params, codec_block,
+                                                 codec_bits)
+                    snap = (torch.where(kx(ok, q_new), q_new, snap[0]),
+                            torch.where(kx(ok, s_new), s_new, snap[1]))
+                else:
+                    snap = tree_where_k(ok, stacked, snap)
                 has_snap = has_snap | ok
                 nsent = nsent + ok.to(torch.int32)
         return stacked, snap, has_snap, nsent
@@ -126,6 +172,8 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
             stacked, snap, has_snap, nsent = _train_and_probe(
                 params, xs, ys, chan)
             arrived = _final_arrival(chan)
+            if use_codec and scheme.uses_probes:
+                snap = _codec_decode(snap[0], snap[1], stacked, params)
             new_params, rescued = scheme.aggregate(params, stacked, snap,
                                                    has_snap, arrived)
             delayed = scheme.delayed_out(chan["valid"], arrived)

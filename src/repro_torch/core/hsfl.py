@@ -1,28 +1,34 @@
 """The HSFL + OPT simulation, Algorithms 1 & 2 end to end
-(``repro/core/hsfl.py``, fused engine).
+(``repro/core/hsfl.py``).
 
 The paper's setting (Section IV): 30 UAVs, 10 selected per round, e=6 local
 epochs of 4 steps, batch 10, lr 0.01, the 5-layer CNN, a Rician channel
 with per-round K resampling, per-epoch path-loss variation and a 30%
-complete-interruption probability.  Each round:
+complete-interruption probability.  Two round engines share the control
+plane, as in the reference:
 
-1. selects users on the host through the scheme registry;
-2. presamples the round's channel and batches on the host from the numpy
-   streams, in exactly the reference's order (so both packages see the
-   same channel, batches and decisions for the same seed);
-3. runs ``build_fused_round`` on the device: local training through the
-   fused-CNN kernels, the OPT probe decisions and the scheme's aggregate;
-4. evaluates on the test set through the forward kernels.
+- fused (default, ``build_fused_round``): the host selects users through
+  the scheme registry and presamples the round's channel and batches from
+  the numpy streams, in exactly the reference's order; the device trains
+  the K users in lockstep through the fused-CNN kernels, makes the OPT
+  probe decisions and aggregates; eval runs the forward kernels.
+- host (``use_fused_round=False``): the reference loop over one
+  ``OppTransmitter`` per user, autograd SGD over ``cnn.forward`` for the
+  stacked cohort, list-form aggregation; the serving path
+  (``serving/fl_server``) wraps it.
+
+With ``use_delta_codec`` the snapshots go through the delta codec's
+kernels (``kernels/delta_codec``) in both engines, and the payload's
+compression ratio is derived from the model's int8/int4 byte count.
 
 ``HSFLSimulation(cfg, device=None)`` runs on the CUDA card and raises when
-there is none; ``device="cpu"`` runs the kernels' plain twins.  The host
-reference engine (``use_fused_round=False``) and the delta codec wait for
-later slices.
+there is none; ``device="cpu"`` runs the kernels' plain twins.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -32,13 +38,16 @@ from repro_torch.core.channel import ChannelParams, UAVFleet
 from repro_torch.core.fused_round import build_fused_round
 from repro_torch.core.metrics import RoundLog, SimLog
 from repro_torch.core.schemes import get_scheme
+from repro_torch.core.transmission import OppTransmitter
 from repro_torch.data.partition import partition
 from repro_torch.data.synthetic import Dataset, make_digits
 from repro_torch.device import resolve_device
+from repro_torch.kernels.delta_codec.ops import (codec_ratio, decode_delta,
+                                                 encode_delta)
 from repro_torch.kernels.fused_cnn.ops import ForwardPolicy, make_eval_forward
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.training.loss import accuracy, cross_entropy
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -62,12 +71,16 @@ class HSFLConfig:
     model_bytes: float = 10e6
     ue_model_fraction: float = 0.25
     compress_ratio: float = 1.0    # <1 when snapshots are compressed
-    use_delta_codec: bool = False  # not ported yet
+    # int8/int4 delta-codec snapshots (kernels/delta_codec): compress_ratio
+    # is then derived from the model's byte count; codec_block is the
+    # quantization group width, codec_bits the bit depth (8 or 4)
+    use_delta_codec: bool = False
     codec_block: int = 512
     codec_bits: int = 8
-    use_fused_round: bool = True   # False (host reference) not ported yet
-    # CNN hot-path policy (kernels/fused_cnn.ForwardPolicy); xla and pallas
-    # both run the port's kernels
+    use_fused_round: bool = True   # False -> host OppTransmitter reference
+    # CNN hot-path policy of the fused engine (kernels/fused_cnn.
+    # ForwardPolicy); xla and pallas both run the port's kernels.  The host
+    # engine always runs the autograd step
     kernel: str = "xla"
     precision: str = "f32"
     block_k: int = 0
@@ -80,13 +93,14 @@ class HSFLConfig:
 
 
 def model_compress_ratio(cfg: HSFLConfig) -> float:
-    """The snapshot compression ratio: ``cfg.compress_ratio`` (the codec's
-    derived ratio waits for the codec slice)."""
-    if cfg.use_delta_codec:
-        raise NotImplementedError(
-            "use_delta_codec=True is not ported yet (ROADMAP queue 1: "
-            "delta codec)")
-    return cfg.compress_ratio
+    """The snapshot compression ratio: with ``use_delta_codec`` the codec's
+    exact byte ratio for this CNN (its parameter count from the shapes, no
+    tensor made), else ``cfg.compress_ratio``."""
+    if not cfg.use_delta_codec:
+        return cfg.compress_ratio
+    n = sum(math.prod(shape) for layer in cnn_mod.param_shapes().values()
+            for shape in layer.values())
+    return codec_ratio(n, cfg.codec_block, cfg.codec_bits)
 
 
 def _heterogeneous_devices(n: int, rng: np.random.Generator,
@@ -104,6 +118,21 @@ def _epoch_indices(n: int, cfg: HSFLConfig, rng: np.random.Generator) -> np.ndar
     return idx[:need].reshape(cfg.steps_per_epoch, cfg.batch_size)
 
 
+def _sample_epoch(ds: Dataset, cfg: HSFLConfig, rng: np.random.Generator):
+    """Fixed-shape epoch batches (steps, bs, ...), as numpy."""
+    idx = _epoch_indices(len(ds), cfg, rng)
+    return ds.x[idx], ds.y[idx]
+
+
+def _cohort_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Σ_k of user k's mean cross entropy over (K, B) logits: its gradient
+    with respect to user k's params is that user's own (the reference
+    vmaps one user's ``jax.grad``)."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(torch.mean(torch.logsumexp(logits, -1) - gold, dim=-1))
+
+
 def _k_bucket(n_sched: int, k_select: int) -> int:
     """Pad K to a small even bucket.  Padded slots hold zero images with
     label 0, are ``valid=False`` and still train, as in the reference."""
@@ -111,13 +140,9 @@ def _k_bucket(n_sched: int, k_select: int) -> int:
 
 
 class HSFLSimulation:
-    """Control plane on the host around the fused device round."""
+    """Control plane on the host around the fused or the host round."""
 
     def __init__(self, cfg: HSFLConfig, device=None):
-        if not cfg.use_fused_round:
-            raise NotImplementedError(
-                "use_fused_round=False (the host reference engine) is not "
-                "ported yet (ROADMAP queue 1: host engine)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.scheme = get_scheme(cfg.scheme)
@@ -138,21 +163,43 @@ class HSFLSimulation:
         self.compress_ratio = model_compress_ratio(cfg)
         self._probe_epochs = self.scheme.static_schedule(
             cfg.local_epochs, cfg.b, cfg.schedule_override)
-        policy = ForwardPolicy(kernel=cfg.kernel, precision=cfg.precision,
-                               block_k=cfg.block_k,
-                               batch_users=cfg.batch_users).validate()
-        self._eval_fwd = make_eval_forward(policy)
-        self._fused = build_fused_round(
-            scheme=self.scheme, local_epochs=cfg.local_epochs,
-            steps_per_epoch=cfg.steps_per_epoch, lr=cfg.lr,
-            tau_max=cfg.tau_max, probe_epochs=self._probe_epochs,
-            async_weight=cfg.async_alpha * 2.0 ** (-cfg.async_a),
-            k_carry=cfg.k_select, forward=policy)
+        self._eval_fwd = cnn_mod.forward
+        if cfg.use_fused_round:
+            policy = ForwardPolicy(kernel=cfg.kernel,
+                                   precision=cfg.precision,
+                                   block_k=cfg.block_k,
+                                   batch_users=cfg.batch_users).validate()
+            self._eval_fwd = make_eval_forward(policy)
+            self._fused = build_fused_round(
+                scheme=self.scheme, local_epochs=cfg.local_epochs,
+                steps_per_epoch=cfg.steps_per_epoch, lr=cfg.lr,
+                tau_max=cfg.tau_max, probe_epochs=self._probe_epochs,
+                async_weight=cfg.async_alpha * 2.0 ** (-cfg.async_a),
+                use_codec=cfg.use_delta_codec, k_carry=cfg.k_select,
+                forward=policy, codec_block=cfg.codec_block,
+                codec_bits=cfg.codec_bits)
 
+    @torch.no_grad()
     def evaluate(self) -> Tuple[float, float]:
         logits = self._eval_fwd(self.params, self._test_x)
         return (float(cross_entropy(logits, self._test_y)),
                 float(accuracy(logits, self._test_y)))
+
+    def _epoch_all(self, stacked, xs: torch.Tensor, ys: torch.Tensor):
+        """One local epoch for the whole cohort (host engine): for each of
+        the ``steps`` batches of xs (K, steps, B, ...), one SGD step of every
+        user by autograd over ``cnn.forward``."""
+        lr = self.cfg.lr
+        for s in range(xs.shape[1]):
+            p = tree_map(lambda t: t.detach().requires_grad_(True), stacked)
+            loss = _cohort_loss(cnn_mod.forward(p, xs[:, s]), ys[:, s])
+            grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+            with torch.no_grad():
+                stacked = tree_map(lambda w: w - lr * next(grads), p)
+        return stacked
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # -- per-round control plane ---------------------------------------------
     def _schedule_round(self):
@@ -204,10 +251,7 @@ class HSFLSimulation:
         train_time = np.full(K, 1e9, np.float64)
         for j, u in enumerate(sched):
             payload[j] = cfg.model_bytes if u.mode == "FL" else ue_bytes
-            train_time[j] = (
-                lat.train_time_fl(self.devices[u.index], self.workloads[u.index])
-                if u.mode == "FL" else
-                lat.train_time_sl(self.devices[u.index], self.workloads[u.index]))
+            train_time[j] = self.train_time(u)
         payload *= self.compress_ratio
         rate0 = np.array([u.rate0_bps for u in sched] + [1.0] * (K - n_s))
         tau_extra0 = (cfg.b - 1) * payload * 8.0 / np.maximum(rate0, 1e-9)
@@ -222,6 +266,11 @@ class HSFLSimulation:
         return stack, torch.zeros(k, dtype=torch.bool, device=self.device)
 
     def run_round(self, t: int, carry_delayed) -> Tuple[RoundLog, object]:
+        if self.cfg.use_fused_round:
+            return self._run_round_fused(t, carry_delayed)
+        return self._run_round_host(t, carry_delayed)
+
+    def _run_round_fused(self, t: int, carry_delayed):
         cfg = self.cfg
         sched, ue_bytes = self._schedule_round()
         log = RoundLog(round=t, selected=len(sched))
@@ -244,8 +293,7 @@ class HSFLSimulation:
         payload, tau_extra0, train_time, valid = \
             self._user_consts(sched, ue_bytes, K)
 
-        dev = self.device
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        put = self._to_device
         xs = put(xs)
         ys = put(ys.astype(np.int64))
         chan = {
@@ -283,6 +331,113 @@ class HSFLSimulation:
                 wl = self.workloads[u.index]
                 log.bytes_sent += wl.act_bytes_per_sample * wl.samples
         return log, new_carry
+
+    # -- host reference engine ----------------------------------------------
+    def _run_round_host(self, t: int, carry_delayed
+                        ) -> Tuple[RoundLog, List[tuple]]:
+        cfg = self.cfg
+        carry_delayed = list(carry_delayed or [])
+        sched, ue_bytes = self._schedule_round()
+
+        log = RoundLog(round=t, selected=len(sched))
+        if not sched:
+            self.params = self.scheme.aggregate_host(
+                [], carry_delayed, self.params, cfg.async_alpha, cfg.async_a)
+            return log, []
+        txs: Dict[int, OppTransmitter] = {}
+        for u in sched:
+            payload = cfg.model_bytes if u.mode == "FL" else ue_bytes
+            txs[u.index] = OppTransmitter(
+                payload, cfg.local_epochs, cfg.b, u.rate0_bps,
+                compress_ratio=self.compress_ratio,
+                schedule_override=cfg.schedule_override)
+
+        # stacked per-user params (K, ...): everyone starts from the global
+        K = _k_bucket(len(sched), cfg.k_select)
+        stacked = self.broadcast(K)
+
+        def user_tree(i: int):
+            return tree_map(lambda a: a[i], stacked)
+
+        # local training: epochs advance in lockstep; channel drifts per epoch
+        for e_t in range(1, cfg.local_epochs + 1):
+            self.fleet.move()                  # path loss varies per epoch
+            rates = self.fleet.rates()
+            outages = self.fleet.outages()
+            stacked = self._epoch_all(stacked, *self.epoch_batches(sched, K))
+            if self._probe_epochs:
+                for i, u in enumerate(sched):
+                    if e_t in txs[u.index].schedule:
+                        txs[u.index].maybe_transmit(
+                            e_t, float(rates[u.index]),
+                            bool(outages[u.index]),
+                            lambda i=i: self.snapshot_of(user_tree(i)))
+
+        # final uploads
+        arrived: List[object] = []
+        new_delayed: List[tuple] = []
+        rates = self.fleet.rates()
+        outages = self.fleet.outages()
+        for i, u in enumerate(sched):
+            tx = txs[u.index]
+            # the scheme's deadline: extra seconds charged against τ_max
+            slack = float(self.scheme.final_slack(tx.tau_extra0))
+            ok = tx.final_upload(float(rates[u.index]), bool(outages[u.index]),
+                                 self.train_time(u) + slack, cfg.tau_max)
+            if ok:
+                arrived.append(user_tree(i))
+                log.arrived_final += 1
+            elif self.scheme.uses_probes and tx.snapshot is not None:
+                arrived.append(tx.snapshot)     # the paper's rescue
+                log.used_snapshot += 1
+            elif self.scheme.carries_delayed:
+                new_delayed.append((user_tree(i), 1))      # max delay 1
+                log.delayed += 1
+            else:
+                log.dropped += 1
+            log.bytes_sent += tx.bytes_sent
+            if u.mode == "SL" and tx.events:
+                # one-off activation payload m_a rides the SL uplink (eq. 12)
+                log.bytes_sent += self.workloads[u.index].act_bytes_per_sample \
+                    * self.workloads[u.index].samples
+
+        self.params = self.scheme.aggregate_host(
+            arrived, carry_delayed, self.params,
+            cfg.async_alpha, cfg.async_a)
+        return log, new_delayed
+
+    # -- pieces of the host round the serving path shares ----------------------
+    def broadcast(self, k: int):
+        """The global params repeated over a leading cohort axis of k."""
+        return tree_map(
+            lambda a: a.unsqueeze(0).expand((k,) + tuple(a.shape)),
+            self.params)
+
+    def epoch_batches(self, sched, k: int):
+        """One epoch's batches of the scheduled users from the simulation
+        stream, on the device: xs (k, steps, B, ...), ys (k, steps, B).
+        Unused slots repeat user 0's batches (they train and are ignored)."""
+        eb = [_sample_epoch(self.clients[u.index], self.cfg, self.rng)
+              for u in sched]
+        while len(eb) < k:
+            eb.append(eb[0])
+        return (self._to_device(np.stack([b[0] for b in eb])),
+                self._to_device(np.stack([b[1] for b in eb]).astype(np.int64)))
+
+    def snapshot_of(self, tree):
+        """The snapshot the server holds of one user's params: the tree
+        itself, or with the codec its quantize-dequantize round trip (the
+        server only ever holds the int8 delta payload)."""
+        if not self.cfg.use_delta_codec:
+            return tree
+        payload = encode_delta(tree, self.params, block=self.cfg.codec_block,
+                               bits=self.cfg.codec_bits)
+        return decode_delta(payload, self.params)
+
+    def train_time(self, u) -> float:
+        dev, wl = self.devices[u.index], self.workloads[u.index]
+        return (lat.train_time_fl(dev, wl) if u.mode == "FL"
+                else lat.train_time_sl(dev, wl))
 
     def run(self, eval_every: int = 1, verbose: bool = False) -> SimLog:
         sim = SimLog()

@@ -7,6 +7,9 @@ The file name carries a hash of the package's sources and of the flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is.
 ``build_all`` starts one ``nvcc`` per source and waits for all of them.
 
+``Library`` binds one library's C functions for the kernel wrappers: each
+launch goes on the current stream, raises on a CUDA error and counts.
+
 Nothing is built when a module is imported: the first CUDA launch builds
 what it needs.  A missing ``nvcc`` or a failed compile raises.
 """
@@ -19,7 +22,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
@@ -27,6 +32,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 # one entry per .cu source: library name -> source path
 SOURCES: Dict[str, Path] = {
     "fused_cnn": _PKG / "fused_cnn" / "csrc" / "fused_cnn.cu",
+    "delta_codec": _PKG / "delta_codec" / "csrc" / "delta_codec.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -103,3 +109,70 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def on_cpu(*ts) -> bool:
+    """True for CPU tensors, False for CUDA tensors of one device, else
+    raise: a wrapper runs its plain twin only on the CPU."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
+        return False
+    raise ValueError(f"kernels take tensors on one CPU or CUDA device, got "
+                     f"{sorted(str(t.device) for t in ts)}")
+
+
+def check(name: str, t, shape, dtype=torch.float32, align: int = 1) -> None:
+    """Raise unless ``t`` has this dtype and shape, is contiguous and its
+    data pointer is ``align``-byte aligned (what a kernel assumes)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
+
+
+class Library:
+    """One library's C functions, with their ctypes signatures (every
+    function takes the stream last and returns a ``cudaError_t``), and the
+    launch counts of the wrappers that call them."""
+
+    def __init__(self, name: str, signatures: Dict[str, List],
+                 error_string: str, launches: Dict[str, int]):
+        self.name = name
+        self.signatures = signatures
+        self.error_string = error_string
+        self.launches = launches
+        self._lib = None
+
+    def _bound(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.name)
+            for fn, argtypes in self.signatures.items():
+                getattr(lib, fn).argtypes = argtypes + [ctypes.c_void_p]
+                getattr(lib, fn).restype = ctypes.c_int
+            err = getattr(lib, self.error_string)
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, counter: str, fn: str, *args) -> None:
+        """Call ``fn`` on the current stream; raise if it returns an error,
+        else add one to ``counter``'s launches."""
+        lib = self._bound()
+        rc = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{fn}: CUDA error {rc}: "
+                               f"{getattr(lib, self.error_string)(rc).decode()}")
+        self.launches[counter] += 1
+
+    def reset(self) -> None:
+        """Set every launch count to 0."""
+        for name in self.launches:
+            self.launches[name] = 0

@@ -19,6 +19,16 @@ STAGES = ("conv1", "conv2", "fc1", "fc2", "fc3")
 NUM_STAGES = len(STAGES)
 
 
+def param_shapes(num_classes: int = 10, image_side: int = 28) -> Dict:
+    """The params tree's leaf shapes, with no tensor made."""
+    flat = (image_side // 4) ** 2 * 16            # two 2x2 pools
+    return {"conv1": {"w": (3, 3, 1, 8), "b": (8,)},
+            "conv2": {"w": (3, 3, 8, 16), "b": (16,)},
+            "fc1": {"w": (flat, 128), "b": (128,)},
+            "fc2": {"w": (128, 64), "b": (64,)},
+            "fc3": {"w": (64, num_classes), "b": (num_classes,)}}
+
+
 def init_cnn(seed: int = 0, device=None, num_classes: int = 10,
              image_side: int = 28) -> Dict:
     """Random init from ``torch.Generator().manual_seed(seed)``, on
@@ -56,26 +66,62 @@ def _pool2(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
-def _conv_im2col(p, x):
-    b, h, w, cin = x.shape
+def _pool2_first(y: torch.Tensor) -> torch.Tensor:
+    """2x2 max pool over (..., H, W, C) whose gradient goes to the first
+    maximum of each window in row-major order, as the gradient of JAX's
+    ``reduce_window`` max does (select-and-scatter with ``>=``): the window
+    is gathered at its first argmax, and the gather's backward scatters the
+    whole cotangent there.  ``amax`` would split it among tied maxima."""
+    *lead, h, w, c = y.shape
+    n = len(lead)
+    win = y.reshape(*lead, h // 2, 2, w // 2, 2, c).permute(
+        *range(n), n, n + 2, n + 4, n + 1, n + 3).reshape(
+            *lead, h // 2, w // 2, c, 4)
+    first = torch.argmax(win, dim=-1, keepdim=True)
+    return torch.gather(win, -1, first).squeeze(-1)
+
+
+def _conv(p, x, pool):
+    """3x3 SAME conv as an im2col matmul, bias, ReLU and ``pool`` over
+    (..., B, H, W, C); with stacked params (leaves (K, ...)) the leading
+    axis is the user and the product a batched matmul per user."""
+    *lead, h, w, cin = x.shape
     cout = p["w"].shape[-1]
-    y = _patches3x3(x).reshape(b * h * w, 9 * cin)
-    y = y @ p["w"].reshape(9 * cin, cout)
-    y = torch.relu(y.reshape(b, h, w, cout) + p["b"])
-    return _pool2(y)
+    pat = _patches3x3(x.reshape(-1, h, w, cin))
+    pat = pat.reshape(*lead[:-1], lead[-1] * h * w, 9 * cin)
+    z = pat @ p["w"].reshape(*p["w"].shape[:-4], 9 * cin, cout)
+    b = p["b"].reshape(*p["b"].shape[:-1], 1, 1, 1, cout)
+    return pool(torch.relu(z.reshape(*lead, h, w, cout) + b))
 
 
 def _fc(p, x, act=True):
-    y = x @ p["w"] + p["b"]
+    y = x @ p["w"] + p["b"].unsqueeze(-2)
     return torch.relu(y) if act else y
+
+
+def forward(params, images: torch.Tensor) -> torch.Tensor:
+    """The model of ``repro/models/cnn.forward``, differentiable by
+    autograd, for the host engine: images (B, 28, 28, 1) -> logits
+    (B, classes), or with stacked params (leaves (K, ...)) images
+    (K, B, 28, 28, 1) -> (K, B, classes).
+
+    JAX's forward is ``conv_general_dilated`` + ``reduce_window`` max; here
+    the conv is the im2col matmul (equal up to summation order) and the
+    pool routes its gradient to the first maximum (``_pool2_first``)."""
+    y = _conv(params["conv1"], images, _pool2_first)
+    y = _conv(params["conv2"], y, _pool2_first)
+    y = y.reshape(*y.shape[:-3], -1)
+    y = _fc(params["fc1"], y)
+    y = _fc(params["fc2"], y)
+    return _fc(params["fc3"], y, act=False)
 
 
 def forward_im2col(params, images: torch.Tensor) -> torch.Tensor:
     """Full-model forward in plain torch (differentiable by autograd):
     convolutions as (B·H·W, 9·Cin)x(9·Cin, Cout) matmuls, pooling as a
     reshape-max."""
-    y = _conv_im2col(params["conv1"], images)
-    y = _conv_im2col(params["conv2"], y)
+    y = _conv(params["conv1"], images, _pool2)
+    y = _conv(params["conv2"], y, _pool2)
     y = y.reshape(y.shape[0], -1)
     y = _fc(params["fc1"], y)
     y = _fc(params["fc2"], y)

@@ -7,7 +7,7 @@ norm, say) adds them in the same order in both packages.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, Iterator, List
 
 import torch
 
@@ -21,9 +21,26 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 
 def tree_leaves(tree: Any) -> List[Any]:
+    """Leaves in ``jax.tree_util`` order: dict keys sorted, lists and tuples
+    in order, None holding no leaf."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in tree_leaves(t)]
+    if tree is None:
+        return []
     return [tree]
+
+
+def tree_unflatten(like: Any, leaves: Iterator) -> Any:
+    """The structure of ``like`` filled from the iterator ``leaves``."""
+    if isinstance(like, dict):
+        return {k: tree_unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(tree_unflatten(t, leaves) for t in like)
+    if like is None:
+        return None
+    return next(leaves)
 
 
 def tree_lerp(a: Any, b: Any, w) -> Any:

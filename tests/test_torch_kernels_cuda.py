@@ -1,5 +1,5 @@
-"""The fused-CNN CUDA kernels against their plain twins on the card, and the
-port's import hygiene.
+"""The CUDA kernels (fused CNN, delta codec) against their plain twins on
+the card, and the port's import hygiene.
 
 The kernel tests need an NVIDIA card (marker ``cuda``): they skip, with a
 reason, where ``torch.cuda.is_available()`` is False; on the card run them
@@ -8,10 +8,15 @@ They use the shapes ``chip_smoke.py`` checks: the main path's cohort (K=10,
 B=10, both conv layers), an odd cohort (K=3, B=7), the eval shape (K=1,
 B=1000) and an all-ones pool-tie cohort.  The conv forward sums in the
 twin's order, so its outputs and masks must be equal; everything else
-agrees to 1e-5 of the largest magnitude (summation order only).
+agrees to 1e-5 of the largest magnitude (summation order only).  The
+codec kernels are held to their twins bitwise (q, scales and the
+dequantized values) at the fused round's M = 256·10 rows and one tree's
+217, blocks 128 and 512, int8 and int4, with all-zero rows and lanes on
+exact .5 quanta.
 
-The hygiene tests run everywhere: the port imports neither JAX nor the JAX
-package, and an entry point given no device refuses to run without a card.
+The hygiene tests run everywhere: the port imports neither JAX, nor the
+JAX package, nor ``msgpack`` (absent on the card's machine), and an entry
+point given no device refuses to run without a card.
 """
 import ast
 import os
@@ -165,6 +170,80 @@ def test_round_on_card_matches_cpu(cuda):
         assert float((a - b).abs().max()) < 1e-4
 
 
+def codec_input(m, block, bits, seed, device):
+    """Gaussian rows, all-zero rows and rows whose lanes sit on exact
+    k + 0.5 quanta of a power-of-two scale."""
+    g = torch.Generator().manual_seed(seed)
+    qmax = 2 ** (bits - 1) - 1
+    x = torch.randn((m, block), generator=g) * 1e-3
+    x[::7] = 0.0
+    for r in range(3, m, 11):
+        s = 2.0 ** -(8 + r % 5)
+        k = torch.randint(-qmax, qmax, (block - 1,), generator=g).float()
+        x[r, 0] = qmax * s
+        x[r, 1:] = (k + 0.5) * s
+    return x.to(device)
+
+
+CODEC_CASES = [(m, block, bits) for m in (2560, 217) for block in (512, 128)
+               for bits in (8, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,block,bits", CODEC_CASES,
+                         ids=[f"M{m}-block{b}-int{q}"
+                              for m, b, q in CODEC_CASES])
+def test_codec_kernels_match_twins_bitwise(cuda, m, block, bits):
+    from repro_torch.kernels.delta_codec import kernel as knl, ref
+    x = codec_input(m, block, bits, m + block + bits, cuda)
+    knl.reset_launches()
+    q, s = knl.quantize_blocks(x, bits=bits)
+    qr, sr = ref.quantize_ref(x, bits)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(knl.dequantize_blocks(qr, sr),
+                       ref.dequantize_ref(qr, sr))
+    assert knl.LAUNCHES == {"quantize_blocks": 1, "dequantize_blocks": 1}
+    with pytest.raises(TypeError, match="float32"):
+        knl.quantize_blocks(x.double())
+
+
+@pytest.mark.cuda
+def test_codec_round_and_server_on_card_match_cpu(cuda):
+    """The fused codec round and the server, 2 rounds each on the card and
+    on the CPU: equal counts; params within 1e-3, which is 1e-4 for the
+    summation order plus a quantization step (deltas of ~1e-2 over 127):
+    a 1e-7 difference may move one lane of a rescued snapshot across a .5
+    boundary."""
+    from repro_torch.core.hsfl import HSFLConfig, HSFLSimulation
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.serving.fl_server import FLServer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    p0 = init_cnn(0, "cpu")
+    for fused in (True, False):
+        cfg = HSFLConfig(rounds=2, n_uavs=8, k_select=4, n_train=400,
+                         n_test=100, steps_per_epoch=2, local_epochs=3,
+                         seed=4, use_delta_codec=True,
+                         use_fused_round=fused)
+        out = []
+        for dev in (cuda, "cpu"):
+            if fused:
+                sim = HSFLSimulation(cfg, device=dev)
+                sim.params = tree_map(lambda t: t.to(sim.device).clone(), p0)
+                log = sim.run()
+            else:
+                server = FLServer(cfg, device=dev)
+                server.sim.params = tree_map(
+                    lambda t: t.to(server.sim.device).clone(), p0)
+                log = server.serve()
+                sim = server.sim
+            out.append(([(r.arrived_final, r.used_snapshot, r.dropped,
+                          r.bytes_sent) for r in log.rounds],
+                        [t.cpu() for t in tree_leaves(sim.params)]))
+        assert out[0][0] == out[1][0]
+        for a, b in zip(out[0][1], out[1][1]):
+            assert float((a - b).abs().max()) < 1e-3
+
+
 # ---------------------------------------------------------------------------
 # import hygiene: runs everywhere
 # ---------------------------------------------------------------------------
@@ -185,18 +264,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 names = [node.module]
             for name in names:
                 top = name.split(".")[0]
-                if top in ("jax", "jaxlib", "repro"):
+                if top in ("jax", "jaxlib", "repro", "msgpack"):
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} "
                                f"imports {name}")
     assert not bad, "\n".join(bad)
-    assert len(_port_files()) > 20
+    walked = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
+              for p in _port_files()[:-1]}
+    assert {"checkpoint", "core", "kernels", "launch", "serving"} <= walked
+    assert len(_port_files()) > 30
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core.hsfl, repro_torch.kernels._build, "
-            "repro_torch.kernels.fused_cnn.kernel\n"
+            "repro_torch.kernels.fused_cnn.kernel, "
+            "repro_torch.kernels.delta_codec.kernel, "
+            "repro_torch.serving.fl_server, repro_torch.launch.serve_fl\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
             "assert not bad, bad\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -222,6 +306,12 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     from repro_torch.models.cnn import init_cnn
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cnn(0)
+    from repro_torch.launch import serve_fl
+    from repro_torch.serving.fl_server import FLServer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FLServer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_fl.main(["--rounds", "1", "--quiet"])
     assert resolve_device("cpu") == torch.device("cpu")
     assert HSFLSimulation(cfg, device="cpu").device.type == "cpu"
 
@@ -240,11 +330,13 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch,
                                                         tmp_path):
     from repro_torch.kernels import _build
-    path = _build.library_path("fused_cnn")
-    assert path.parent == ROOT / "build" / "kernels"
-    assert path.name.startswith("fused_cnn-") and path.suffix == ".so"
+    for name in ("fused_cnn", "delta_codec"):
+        path = _build.library_path(name)
+        assert path.parent == ROOT / "build" / "kernels"
+        assert path.name.startswith(f"{name}-") and path.suffix == ".so"
+        assert _build.SOURCES[name].is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert _build.SOURCES["fused_cnn"].is_file()
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
     # no nvcc on PATH and none under $CUDA_HOME/bin: a clear error
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
