@@ -35,7 +35,9 @@ from repro_torch.kernels.delta_codec.kernel import (BLOCK, dequantize_blocks,
 from repro_torch.kernels.delta_codec.ops import (stacked_flatten,
                                                  stacked_unflatten)
 from repro_torch.kernels.fused_cnn.ops import (ForwardPolicy,
-                                               make_stacked_epoch_fn)
+                                               make_eval_forward,
+                                               make_stacked_epoch_fn,
+                                               resolve_train_step)
 from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
 
 __all__ = ["RoundStats", "build_fused_round"]
@@ -84,10 +86,46 @@ def _codec_zero_state(stacked, block: int = BLOCK):
                         device=flat.device))
 
 
+def _resolve_epoch_fns(forward: Any, lr: float) -> Tuple[Callable, Callable]:
+    """``(epoch_all, eval_fwd)`` for the round builder.
+
+    A ``ForwardPolicy`` (or ``None``: the default xla/f32 policy) gets the
+    stacked-cohort epoch of ``ops.make_stacked_epoch_fn``.  A bare forward
+    callable ``forward(params, x) -> logits`` (the hook that pushes non-CNN
+    models through the round) gets autograd SGD, one user at a time, and is
+    its own eval forward."""
+    if forward is None or isinstance(forward, ForwardPolicy):
+        policy = (forward or ForwardPolicy()).validate()
+        return make_stacked_epoch_fn(policy, lr), make_eval_forward(policy)
+    loss_grad, fwd_eval = resolve_train_step(forward)
+    epoch_fn = _make_epoch_fn(loss_grad, lr)
+
+    @torch.no_grad()
+    def epoch_all(stacked, xs, ys):
+        users = [epoch_fn(tree_map(lambda t: t[k], stacked), xs[k], ys[k])
+                 for k in range(ys.shape[0])]
+        return tree_map(lambda *ls: torch.stack(ls), *users)
+
+    return epoch_all, fwd_eval
+
+
+def _make_epoch_fn(loss_grad: Callable, lr: float) -> Callable:
+    """One local epoch for one user (Alg. 1 l. 8): an SGD step per batch of
+    xs (steps, B, ...), ys (steps, B); returns the new params."""
+
+    def epoch_fn(params, xs, ys):
+        for s in range(xs.shape[0]):
+            _, g = loss_grad(params, xs[s], ys[s])
+            params = tree_map(lambda w, gg: w - lr * gg, params, g)
+        return params
+
+    return epoch_fn
+
+
 def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
                       lr: float, tau_max: float, probe_epochs: Tuple[int, ...],
                       async_weight: float = 0.0, use_codec: bool = False,
-                      k_carry: int = 0, forward: ForwardPolicy | None = None,
+                      k_carry: int = 0, forward: Any = None,
                       codec_block: int = BLOCK, codec_bits: int = 8
                       ) -> Callable:
     """One HSFL round for a fixed (scheme, e, steps, schedule).
@@ -106,14 +144,11 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
     writes the round's result into them.  xs and ys must carry
     ``local_epochs`` epochs of ``steps_per_epoch`` steps.
     ``codec_block``/``codec_bits`` are the delta codec's group width and
-    bit depth (``HSFLConfig.codec_block``/``codec_bits``).
+    bit depth (``HSFLConfig.codec_block``/``codec_bits``).  ``forward`` is
+    a ``ForwardPolicy``, ``None`` (the default policy) or a bare forward
+    callable (see ``_resolve_epoch_fns``).
     """
-    if forward is None:
-        forward = ForwardPolicy()
-    if not isinstance(forward, ForwardPolicy):
-        raise TypeError("forward must be a ForwardPolicy (bare forward "
-                        "callables are not ported)")
-    epoch_all = make_stacked_epoch_fn(forward, lr)
+    epoch_all, _ = _resolve_epoch_fns(forward, lr)
     scheme = get_scheme(scheme)
 
     if scheme.carries_delayed and k_carry < 1:
@@ -139,7 +174,8 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
         if use_codec:
             snap = _codec_zero_state(stacked, codec_block)
         else:
-            snap = tree_clone(stacked) if scheme.uses_probes else None
+            snap = tree_clone(stacked) if scheme.uses_probes or probe_epochs \
+                else None
         for e_t in range(1, local_epochs + 1):
             stacked = epoch_all(stacked, xs[e_t - 1], ys[e_t - 1])
             if e_t in probe_epochs:

@@ -11,7 +11,8 @@ plane, as in the reference:
   the scheme registry and presamples the round's channel and batches from
   the numpy streams, in exactly the reference's order; the device trains
   the K users in lockstep through the fused-CNN kernels, makes the OPT
-  probe decisions and aggregates; eval runs the forward kernels.
+  probe decisions and aggregates, under any ``ForwardPolicy`` (kernel,
+  precision, batch_users); eval runs the f32 forward kernels.
 - host (``use_fused_round=False``): the reference loop over one
   ``OppTransmitter`` per user, autograd SGD over ``cnn.forward`` for the
   stacked cohort, list-form aggregation; the serving path
@@ -79,8 +80,10 @@ class HSFLConfig:
     codec_bits: int = 8
     use_fused_round: bool = True   # False -> host OppTransmitter reference
     # CNN hot-path policy of the fused engine (kernels/fused_cnn.
-    # ForwardPolicy); xla and pallas both run the port's kernels.  The host
-    # engine always runs the autograd step
+    # ForwardPolicy): kernel xla | pallas (both the port's kernels) |
+    # im2col (autograd baseline); precision f32 | bf16 (mixed precision);
+    # batch_users False -> the single-user kernels, once per user slot.
+    # The host engine always runs the autograd step; eval is f32 always
     kernel: str = "xla"
     precision: str = "f32"
     block_k: int = 0
@@ -169,7 +172,9 @@ class HSFLSimulation:
                                    precision=cfg.precision,
                                    block_k=cfg.block_k,
                                    batch_users=cfg.batch_users).validate()
-            self._eval_fwd = make_eval_forward(policy)
+            # eval computes in f32 whatever the policy, as the reference's
+            # (cnn.forward) does: the f32 forward kernels at K=1
+            self._eval_fwd = make_eval_forward(ForwardPolicy())
             self._fused = build_fused_round(
                 scheme=self.scheme, local_epochs=cfg.local_epochs,
                 steps_per_epoch=cfg.steps_per_epoch, lr=cfg.lr,

@@ -123,6 +123,18 @@ def on_cpu(*ts) -> bool:
                      f"{sorted(str(t.device) for t in ts)}")
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def compute_dtype(name: str, t) -> torch.dtype:
+    """The compute dtype a kernel takes from its input ``t`` (f32 or bf16);
+    any other dtype raises."""
+    if t.dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"{name}: expected float32 or bfloat16, got "
+                        f"{t.dtype}")
+    return t.dtype
+
+
 def check(name: str, t, shape, dtype=torch.float32, align: int = 1) -> None:
     """Raise unless ``t`` has this dtype and shape, is contiguous and its
     data pointer is ``align``-byte aligned (what a kernel assumes)."""

@@ -1,8 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the fused CNN training step of
-// the OPT-HSFL simulation: one SGD step of the paper's 5-layer CNN for a
-// whole cohort of K users, f32 throughout.
+// the OPT-HSFL simulation: one SGD step of the paper's 5-layer CNN, for a
+// whole cohort of K users or for one user, in f32 or bf16.
 //
-// They replace the four blocked Pallas TPU kernels of
+// They replace the eight fused-CNN Pallas TPU kernels of
 // src/repro/kernels/fused_cnn/kernel.py:
 //
 //   conv_pool_fwd_k  (pallas_call at kernel.py:291) -> conv_pool_fwd_kernel
@@ -11,6 +11,14 @@
 //   fc_chain_fwd_k   (pallas_call at kernel.py:398) -> fc_fwd_kernel
 //   fc_chain_bwd_k   (pallas_call at kernel.py:441) -> fc_bwd_act_kernel
 //                                                    + fc_bwd_grad_kernel
+//   conv_pool_fwd    (pallas_call at kernel.py:117) \
+//   conv_pool_bwd    (pallas_call at kernel.py:159)  | the same kernels at
+//   fc_chain_fwd     (pallas_call at kernel.py:188)  | K = 1, through the
+//   fc_chain_bwd     (pallas_call at kernel.py:224) /  fcnn_user_* entries
+//
+// The single-user kernels are the batch_users=False baseline: launched once
+// per user slot, K launches where the blocked path makes one.  The blocked
+// body at one user is the same contraction, so both share the device code.
 //
 // What bounds them.  At the paper's shapes (K=10 users, batch B=10, 28x28x1
 // images) every kernel does well under a MFLOP per user and moves a few MB:
@@ -18,7 +26,8 @@
 // kernel is bounded by memory traffic (H100 SXM: 3.35 TB/s; a few
 // microseconds each), far from the 67 TFLOP/s f32 peak.  In practice a
 // launch of a few microseconds is dominated by launch latency, and the
-// round by the host loop around 144 training launches.
+// round by the host loop around its 216 training launches (9 per SGD step;
+// 2160 through the single-user kernels at K=10).
 //
 // Design.  The TPU kernels walk a sequential grid over user tiles and keep
 // a whole user's layer in VMEM; here blocks run in parallel in no order, so
@@ -36,11 +45,25 @@
 //   of the image is made;
 // - the image gradient dx is a gather (each input pixel sums its 9 taps in
 //   (i, j) order), not the padded-canvas scatter-add of the TPU kernel.
-// Simple f32 FMA code; tensor cores, TMA and wgmma are left for later work.
+//
+// Compute dtype.  Every kernel is a template on the compute type T, float
+// or __nv_bfloat16.  Products accumulate in f32 in the same order at both
+// types, and the grads of the weights and biases are written in f32.  At
+// bf16 a value rounds to T (__float2bfloat16_rn, nearest even, as XLA's
+// convert) where ref.py's docstring says the reference rounds: z once after
+// its f32 sum, pre = T(pz + b), eq = T(1/count), dz = T(eq * dp), each fc
+// product before its bias add, each dx tap before the fold adds it.  A
+// product of two bf16 values is exact in f32, so fmaf and a separate
+// multiply and add agree there.  rnd<float> is the identity, so the f32
+// instantiation rounds nowhere but in its f32 operations.
+// Weights in shared memory take half the bytes at bf16.  Simple FMA code;
+// tensor cores, TMA and wgmma are left for later work.
 //
 // Interface: plain C functions, bound with ctypes.  Each launches one
 // __global__ function on the given stream and returns cudaGetLastError().
+// The last int argument selects the compute type (0 = f32, 1 = bf16).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define API extern "C" __attribute__((visibility("default")))
@@ -50,6 +73,24 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kFcThreads = 128;
 constexpr int kFcRows = 8;  // batch rows per fc block
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float f(float v) { return v; }
+__device__ __forceinline__ float f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T to(float v);
+template <>
+__device__ __forceinline__ float to<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 to<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// round an f32 value to T and back: the identity at f32
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return f(to<T>(v)); }
 
 inline int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -65,18 +106,19 @@ inline int set_smem(const void* fn, size_t bytes) {
 // threads of a window share their image reads.  The user's weights sit in
 // shared memory.  grid = (ceil(B*PH*PW*O / 256), K).
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv_pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ a,
-                     float* __restrict__ pat, float* __restrict__ eq,
-                     float* __restrict__ relu_m, int B, int H, int W, int C,
+conv_pool_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const T* __restrict__ bias, T* __restrict__ a,
+                     T* __restrict__ pat, T* __restrict__ eq,
+                     T* __restrict__ relu_m, int B, int H, int W, int C,
                      int O, int write_res) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k = blockIdx.y;
   const int P = 9 * C;
-  float* ws = smem;          // (P, O)
-  float* bs = smem + P * O;  // (O,)
-  const float* wk = w + (size_t)k * P * O;
+  T* ws = reinterpret_cast<T*>(smem_raw);  // (P, O)
+  T* bs = ws + P * O;                      // (O,)
+  const T* wk = w + (size_t)k * P * O;
   for (int i = threadIdx.x; i < P * O; i += blockDim.x) ws[i] = wk[i];
   for (int i = threadIdx.x; i < O; i += blockDim.x)
     bs[i] = bias[(size_t)k * O + i];
@@ -92,7 +134,7 @@ conv_pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   r /= PW;
   const int ph = (int)(r % PH);
   const int bb = (int)(r / PH);
-  const float* xb = x + ((size_t)k * B + bb) * H * W * C;
+  const T* xb = x + ((size_t)k * B + bb) * H * W * C;
 
   float z[4];
 #pragma unroll
@@ -105,30 +147,30 @@ conv_pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int j = 0; j < 3; ++j) {
         const int sx = xx + j - 1;
         if (sx < 0 || sx >= W) continue;
-        const float* xp = xb + ((size_t)sy * W + sx) * C;
-        const float* wp = ws + (i * 3 + j) * C * O + o;
+        const T* xp = xb + ((size_t)sy * W + sx) * C;
+        const T* wp = ws + (i * 3 + j) * C * O + o;
         for (int c = 0; c < C; ++c)
-          acc = __fadd_rn(acc, __fmul_rn(xp[c], wp[c * O]));
+          acc = __fadd_rn(acc, __fmul_rn(f(xp[c]), f(wp[c * O])));
       }
     }
-    z[q] = acc;
+    z[q] = rnd<T>(acc);
   }
   const float pz = fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
-  const float pre = __fadd_rn(pz, bs[o]);
+  const float pre = rnd<T>(__fadd_rn(pz, f(bs[o])));
   const size_t pidx = ((((size_t)k * B + bb) * PH + ph) * PW + pw) * O + o;
-  a[pidx] = fmaxf(pre, 0.f);
+  a[pidx] = to<T>(fmaxf(pre, 0.f));
   if (!write_res) return;
-  relu_m[pidx] = pre > 0.f ? 1.f : 0.f;
+  relu_m[pidx] = to<T>(pre > 0.f ? 1.f : 0.f);
 
   int cnt = 0;
 #pragma unroll
   for (int q = 0; q < 4; ++q) cnt += z[q] == pz;
-  const float inv = __fdiv_rn(1.f, (float)cnt);
+  const float inv = rnd<T>(__fdiv_rn(1.f, (float)cnt));
   const size_t row0 = (size_t)k * B * H * W + (size_t)bb * H * W;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int yy = 2 * ph + (q >> 1), xx = 2 * pw + (q & 1);
-    eq[(row0 + (size_t)yy * W + xx) * O + o] = z[q] == pz ? inv : 0.f;
+    eq[(row0 + (size_t)yy * W + xx) * O + o] = to<T>(z[q] == pz ? inv : 0.f);
   }
   // the window's 4 patch rows (4*P values), spread over its O threads
   for (int e = o; e < 4 * P; e += O) {
@@ -138,30 +180,31 @@ conv_pool_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int sy = yy + tap / 3 - 1, sx = xx + tap % 3 - 1;
     const bool in = sy >= 0 && sy < H && sx >= 0 && sx < W;
     pat[(row0 + (size_t)yy * W + xx) * P + p] =
-        in ? xb[((size_t)sy * W + sx) * C + c] : 0.f;
+        in ? xb[((size_t)sy * W + sx) * C + c] : to<T>(0.f);
   }
 }
 
 // ---------------------------------------------------------------------------
 // conv_pool_bwd, pass 1: dz = eq * (da * relu_m) upsampled, and per-chunk
-// partial sums of dW = pat^T dz over R rows of the M = B*H*W patch rows.
-// grid = (nchunks, K).  dz is also written out for pass 2's dx gather.
+// partial sums of dW = pat^T dz (f32) over R rows of the M = B*H*W patch
+// rows.  grid = (nchunks, K).  dz is also written out for pass 2's dx
+// gather.
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv_bwd_partial_kernel(const float* __restrict__ pat,
-                        const float* __restrict__ eq,
-                        const float* __restrict__ relu_m,
-                        const float* __restrict__ da, float* __restrict__ dz,
+conv_bwd_partial_kernel(const T* __restrict__ pat, const T* __restrict__ eq,
+                        const T* __restrict__ relu_m,
+                        const T* __restrict__ da, T* __restrict__ dz,
                         float* __restrict__ part, int B, int H, int W, int C,
                         int O, int R, int nchunks) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k = blockIdx.y, chunk = blockIdx.x;
   const int P = 9 * C, M = B * H * W;
   const int m0 = chunk * R;
   const int rows = min(R, M - m0);
-  float* ps = smem;          // (R, P)
-  float* zs = smem + R * P;  // (R, O)
-  const float* pk = pat + ((size_t)k * M + m0) * P;
+  T* ps = reinterpret_cast<T*>(smem_raw);  // (R, P)
+  T* zs = ps + R * P;                      // (R, O)
+  const T* pk = pat + ((size_t)k * M + m0) * P;
   for (int i = threadIdx.x; i < rows * P; i += blockDim.x) ps[i] = pk[i];
   const int PH = H / 2, PW = W / 2;
   for (int i = threadIdx.x; i < rows * O; i += blockDim.x) {
@@ -169,9 +212,9 @@ conv_bwd_partial_kernel(const float* __restrict__ pat,
     const int xx = m % W, yy = (m / W) % H, bb = m / (H * W);
     const size_t pi =
         ((((size_t)k * B + bb) * PH + yy / 2) * PW + xx / 2) * O + o;
-    const float dp = __fmul_rn(da[pi], relu_m[pi]);
+    const float dp = rnd<T>(__fmul_rn(f(da[pi]), f(relu_m[pi])));
     const size_t zi = ((size_t)k * M + m) * O + o;
-    const float v = __fmul_rn(eq[zi], dp);
+    const T v = to<T>(__fmul_rn(f(eq[zi]), dp));
     zs[i] = v;
     dz[zi] = v;
   }
@@ -180,7 +223,8 @@ conv_bwd_partial_kernel(const float* __restrict__ pat,
   for (int idx = threadIdx.x; idx < P * O; idx += blockDim.x) {
     const int p = idx / O, o = idx % O;
     float acc = 0.f;
-    for (int r = 0; r < rows; ++r) acc = fmaf(ps[r * P + p], zs[r * O + o], acc);
+    for (int r = 0; r < rows; ++r)
+      acc = fmaf(f(ps[r * P + p]), f(zs[r * O + o]), acc);
     out[idx] = acc;
   }
 }
@@ -188,18 +232,19 @@ conv_bwd_partial_kernel(const float* __restrict__ pat,
 // ---------------------------------------------------------------------------
 // conv_pool_bwd, pass 2.  Blocks [0, K): dW[k] = sum of the chunk partials
 // in chunk order, and db[k] = sum of da*relu_m over the pooled positions
-// (a per-channel strided sum, then a fixed-order sum of the strides).
-// Blocks [K, ...): dx gather, one thread per input element (k,b,y,x,c):
-// dx = sum over the 9 taps (i,j) of dz[pixel (y+1-i, x+1-j)] . W[(i,j,c), :].
+// (a per-channel strided sum, then a fixed-order sum of the strides), both
+// f32.  Blocks [K, ...): dx gather, one thread per input element
+// (k,b,y,x,c): dx = sum over the 9 taps (i,j) of
+// T(dz[pixel (y+1-i, x+1-j)] . W[(i,j,c), :]), rounding to T after each add.
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv_bwd_finish_kernel(const float* __restrict__ part,
-                       const float* __restrict__ dz,
-                       const float* __restrict__ da,
-                       const float* __restrict__ relu_m,
-                       const float* __restrict__ w, float* __restrict__ dw,
-                       float* __restrict__ db, float* __restrict__ dx, int K,
-                       int B, int H, int W, int C, int O, int nchunks) {
+                       const T* __restrict__ dz, const T* __restrict__ da,
+                       const T* __restrict__ relu_m, const T* __restrict__ w,
+                       float* __restrict__ dw, float* __restrict__ db,
+                       T* __restrict__ dx, int K, int B, int H, int W, int C,
+                       int O, int nchunks) {
   __shared__ float red[kThreads];
   const int P = 9 * C;
   if ((int)blockIdx.x < K) {
@@ -218,7 +263,7 @@ conv_bwd_finish_kernel(const float* __restrict__ part,
     if (g < G) {
       for (int p = g; p < NP; p += G) {
         const size_t i = ((size_t)k * NP + p) * O + o;
-        s = __fadd_rn(s, __fmul_rn(da[i], relu_m[i]));
+        s = __fadd_rn(s, rnd<T>(__fmul_rn(f(da[i]), f(relu_m[i]))));
       }
     }
     red[threadIdx.x] = s;
@@ -242,18 +287,18 @@ conv_bwd_finish_kernel(const float* __restrict__ part,
   const int bb = (int)(r % B);
   const int k = (int)(r / B);
   const size_t M = (size_t)B * H * W;
-  const float* wk = w + (size_t)k * P * O;
+  const T* wk = w + (size_t)k * P * O;
   float acc = 0.f;
   for (int tap = 0; tap < 9; ++tap) {
     const int sy = yy + 1 - tap / 3, sx = xx + 1 - tap % 3;
     if (sy < 0 || sy >= H || sx < 0 || sx >= W) continue;
-    const float* zr = dz + ((size_t)k * M + ((size_t)bb * H + sy) * W + sx) * O;
-    const float* wr = wk + (size_t)(tap * C + c) * O;
+    const T* zr = dz + ((size_t)k * M + ((size_t)bb * H + sy) * W + sx) * O;
+    const T* wr = wk + (size_t)(tap * C + c) * O;
     float d = 0.f;
-    for (int o = 0; o < O; ++o) d = fmaf(zr[o], wr[o], d);
-    acc = __fadd_rn(acc, d);
+    for (int o = 0; o < O; ++o) d = fmaf(f(zr[o]), f(wr[o]), d);
+    acc = rnd<T>(__fadd_rn(acc, rnd<T>(d)));
   }
-  dx[t] = acc;
+  dx[t] = to<T>(acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -263,58 +308,60 @@ conv_bwd_finish_kernel(const float* __restrict__ part,
 // Thread j owns output column j of each layer for all rows of the tile.
 // grid = (ceil(B / kFcRows), K).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void dense_rows(const float* in_s, int fin,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ b,
-                                           int fout, bool relu, float* out_s,
-                                           float* __restrict__ out_g,
-                                           int rows) {
+template <typename T>
+__device__ __forceinline__ void dense_rows(const T* in_s, int fin,
+                                           const T* __restrict__ w,
+                                           const T* __restrict__ b,
+                                           int fout, bool relu, T* out_s,
+                                           T* __restrict__ out_g, int rows) {
   for (int j = threadIdx.x; j < fout; j += blockDim.x) {
     float acc[kFcRows];
 #pragma unroll
     for (int r = 0; r < kFcRows; ++r) acc[r] = 0.f;
-    for (int f = 0; f < fin; ++f) {
-      const float wv = w[(size_t)f * fout + j];
+    for (int ff = 0; ff < fin; ++ff) {
+      const float wv = f(w[(size_t)ff * fout + j]);
 #pragma unroll
-      for (int r = 0; r < kFcRows; ++r) acc[r] = fmaf(in_s[r * fin + f], wv, acc[r]);
+      for (int r = 0; r < kFcRows; ++r)
+        acc[r] = fmaf(f(in_s[r * fin + ff]), wv, acc[r]);
     }
-    const float bj = b[j];
+    const float bj = f(b[j]);
 #pragma unroll
     for (int r = 0; r < kFcRows; ++r) {
-      float v = __fadd_rn(acc[r], bj);
+      float v = rnd<T>(__fadd_rn(rnd<T>(acc[r]), bj));
       if (relu) v = fmaxf(v, 0.f);
-      if (out_s) out_s[r * fout + j] = v;
-      if (r < rows) out_g[(size_t)r * fout + j] = v;
+      if (out_s) out_s[r * fout + j] = to<T>(v);
+      if (r < rows) out_g[(size_t)r * fout + j] = to<T>(v);
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kFcThreads)
-fc_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-              const float* __restrict__ b1, const float* __restrict__ w2,
-              const float* __restrict__ b2, const float* __restrict__ w3,
-              const float* __restrict__ b3, float* __restrict__ out,
-              float* __restrict__ h1, float* __restrict__ h2, int B, int F,
-              int D1, int D2, int D3) {
-  extern __shared__ float smem[];
+fc_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+              const T* __restrict__ b1, const T* __restrict__ w2,
+              const T* __restrict__ b2, const T* __restrict__ w3,
+              const T* __restrict__ b3, T* __restrict__ out,
+              T* __restrict__ h1, T* __restrict__ h2, int B, int F, int D1,
+              int D2, int D3) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k = blockIdx.y, r0 = blockIdx.x * kFcRows;
   const int rows = min(kFcRows, B - r0);
-  float* xs = smem;                   // (kFcRows, F)
-  float* h1s = xs + kFcRows * F;      // (kFcRows, D1)
-  float* h2s = h1s + kFcRows * D1;    // (kFcRows, D2)
-  const float* xk = x + ((size_t)k * B + r0) * F;
+  T* xs = reinterpret_cast<T*>(smem_raw);  // (kFcRows, F)
+  T* h1s = xs + kFcRows * F;               // (kFcRows, D1)
+  T* h2s = h1s + kFcRows * D1;             // (kFcRows, D2)
+  const T* xk = x + ((size_t)k * B + r0) * F;
   for (int i = threadIdx.x; i < kFcRows * F; i += blockDim.x)
-    xs[i] = i < rows * F ? xk[i] : 0.f;
+    xs[i] = i < rows * F ? xk[i] : to<T>(0.f);
   __syncthreads();
   const size_t row = (size_t)k * B + r0;
-  dense_rows(xs, F, w1 + (size_t)k * F * D1, b1 + (size_t)k * D1, D1, true,
-             h1s, h1 + row * D1, rows);
+  dense_rows<T>(xs, F, w1 + (size_t)k * F * D1, b1 + (size_t)k * D1, D1,
+                true, h1s, h1 + row * D1, rows);
   __syncthreads();
-  dense_rows(h1s, D1, w2 + (size_t)k * D1 * D2, b2 + (size_t)k * D2, D2, true,
-             h2s, h2 + row * D2, rows);
+  dense_rows<T>(h1s, D1, w2 + (size_t)k * D1 * D2, b2 + (size_t)k * D2, D2,
+                true, h2s, h2 + row * D2, rows);
   __syncthreads();
-  dense_rows(h2s, D2, w3 + (size_t)k * D2 * D3, b3 + (size_t)k * D3, D3, false,
-             nullptr, out + row * D3, rows);
+  dense_rows<T>(h2s, D2, w3 + (size_t)k * D2 * D3, b3 + (size_t)k * D3, D3,
+                false, nullptr, out + row * D3, rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -322,58 +369,61 @@ fc_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 // per row tile; dh2 stays in shared memory for the second product.
 // grid = (ceil(B / kFcRows), K).
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kFcThreads)
-fc_bwd_act_kernel(const float* __restrict__ g, const float* __restrict__ h1,
-                  const float* __restrict__ h2, const float* __restrict__ w2,
-                  const float* __restrict__ w3, float* __restrict__ dh1,
-                  float* __restrict__ dh2, int B, int D1, int D2, int D3) {
-  extern __shared__ float smem[];
+fc_bwd_act_kernel(const T* __restrict__ g, const T* __restrict__ h1,
+                  const T* __restrict__ h2, const T* __restrict__ w2,
+                  const T* __restrict__ w3, T* __restrict__ dh1,
+                  T* __restrict__ dh2, int B, int D1, int D2, int D3) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k = blockIdx.y, r0 = blockIdx.x * kFcRows;
   const int rows = min(kFcRows, B - r0);
-  float* gs = smem;                  // (kFcRows, D3)
-  float* d2s = gs + kFcRows * D3;    // (kFcRows, D2)
+  T* gs = reinterpret_cast<T*>(smem_raw);  // (kFcRows, D3)
+  T* d2s = gs + kFcRows * D3;              // (kFcRows, D2)
   const size_t row = (size_t)k * B + r0;
   for (int i = threadIdx.x; i < kFcRows * D3; i += blockDim.x)
-    gs[i] = i < rows * D3 ? g[row * D3 + i] : 0.f;
+    gs[i] = i < rows * D3 ? g[row * D3 + i] : to<T>(0.f);
   __syncthreads();
-  const float* w3k = w3 + (size_t)k * D2 * D3;
+  const T* w3k = w3 + (size_t)k * D2 * D3;
   for (int j = threadIdx.x; j < D2; j += blockDim.x) {
     for (int r = 0; r < kFcRows; ++r) {
       float acc = 0.f;
-      for (int c = 0; c < D3; ++c) acc = fmaf(gs[r * D3 + c], w3k[(size_t)j * D3 + c], acc);
-      const bool live = r < rows && h2[(row + r) * D2 + j] > 0.f;
-      const float v = __fmul_rn(acc, live ? 1.f : 0.f);
+      for (int c = 0; c < D3; ++c)
+        acc = fmaf(f(gs[r * D3 + c]), f(w3k[(size_t)j * D3 + c]), acc);
+      const bool live = r < rows && f(h2[(row + r) * D2 + j]) > 0.f;
+      const T v = to<T>(__fmul_rn(rnd<T>(acc), live ? 1.f : 0.f));
       d2s[r * D2 + j] = v;
       if (r < rows) dh2[(row + r) * D2 + j] = v;
     }
   }
   __syncthreads();
-  const float* w2k = w2 + (size_t)k * D1 * D2;
+  const T* w2k = w2 + (size_t)k * D1 * D2;
   for (int j = threadIdx.x; j < D1; j += blockDim.x) {
     for (int r = 0; r < rows; ++r) {
       float acc = 0.f;
-      for (int i = 0; i < D2; ++i) acc = fmaf(d2s[r * D2 + i], w2k[(size_t)j * D2 + i], acc);
-      const bool live = h1[(row + r) * D1 + j] > 0.f;
-      dh1[(row + r) * D1 + j] = __fmul_rn(acc, live ? 1.f : 0.f);
+      for (int i = 0; i < D2; ++i)
+        acc = fmaf(f(d2s[r * D2 + i]), f(w2k[(size_t)j * D2 + i]), acc);
+      const bool live = f(h1[(row + r) * D1 + j]) > 0.f;
+      dh1[(row + r) * D1 + j] = to<T>(__fmul_rn(rnd<T>(acc), live ? 1.f : 0.f));
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 // fc_chain_bwd, pass 2: every product that reduces over the batch (dW1,
-// dW2, dW3, db1..3) or over D1 (dx = dh1 W1^T), one thread per output
-// element, each sum sequential in a fixed order.  The flat index space is
-// the concatenation [dW1 | dx | dW2 | dW3 | db1 | db2 | db3].
+// dW2, dW3, db1..3, all f32) or over D1 (dx = dh1 W1^T, in T), one thread
+// per output element, each sum sequential in a fixed order.  The flat
+// index space is the concatenation [dW1 | dx | dW2 | dW3 | db1 | db2 | db3].
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fc_bwd_grad_kernel(const float* __restrict__ x, const float* __restrict__ h1,
-                   const float* __restrict__ h2, const float* __restrict__ g,
-                   const float* __restrict__ dh1,
-                   const float* __restrict__ dh2,
-                   const float* __restrict__ w1, float* __restrict__ dw1,
+fc_bwd_grad_kernel(const T* __restrict__ x, const T* __restrict__ h1,
+                   const T* __restrict__ h2, const T* __restrict__ g,
+                   const T* __restrict__ dh1, const T* __restrict__ dh2,
+                   const T* __restrict__ w1, float* __restrict__ dw1,
                    float* __restrict__ db1, float* __restrict__ dw2,
                    float* __restrict__ db2, float* __restrict__ dw3,
-                   float* __restrict__ db3, float* __restrict__ dx, int K,
+                   float* __restrict__ db3, T* __restrict__ dx, int K,
                    int B, int F, int D1, int D2, int D3) {
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n_w1 = (long long)K * F * D1, n_x = (long long)K * B * F;
@@ -381,25 +431,25 @@ fc_bwd_grad_kernel(const float* __restrict__ x, const float* __restrict__ h1,
   if (t < n_w1) {  // dW1[k, f, j] = sum_b x[k,b,f] dh1[k,b,j]
     const int j = (int)(t % D1);
     const long long r = t / D1;
-    const int f = (int)(r % F), k = (int)(r / F);
+    const int ff = (int)(r % F), k = (int)(r / F);
     float acc = 0.f;
     for (int b = 0; b < B; ++b) {
       const size_t row = (size_t)k * B + b;
-      acc = fmaf(x[row * F + f], dh1[row * D1 + j], acc);
+      acc = fmaf(f(x[row * F + ff]), f(dh1[row * D1 + j]), acc);
     }
     dw1[t] = acc;
     return;
   }
   t -= n_w1;
   if (t < n_x) {  // dx[k, b, f] = sum_j dh1[k,b,j] W1[k,f,j]
-    const int f = (int)(t % F);
+    const int ff = (int)(t % F);
     const size_t row = (size_t)(t / F);
     const int k = (int)(row / B);
-    const float* wr = w1 + ((size_t)k * F + f) * D1;
-    const float* dr = dh1 + row * D1;
+    const T* wr = w1 + ((size_t)k * F + ff) * D1;
+    const T* dr = dh1 + row * D1;
     float acc = 0.f;
-    for (int j = 0; j < D1; ++j) acc = fmaf(dr[j], wr[j], acc);
-    dx[t] = acc;
+    for (int j = 0; j < D1; ++j) acc = fmaf(f(dr[j]), f(wr[j]), acc);
+    dx[t] = to<T>(acc);
     return;
   }
   t -= n_x;
@@ -410,7 +460,7 @@ fc_bwd_grad_kernel(const float* __restrict__ x, const float* __restrict__ h1,
     float acc = 0.f;
     for (int b = 0; b < B; ++b) {
       const size_t row = (size_t)k * B + b;
-      acc = fmaf(h1[row * D1 + i], dh2[row * D2 + j], acc);
+      acc = fmaf(f(h1[row * D1 + i]), f(dh2[row * D2 + j]), acc);
     }
     dw2[t] = acc;
     return;
@@ -423,14 +473,14 @@ fc_bwd_grad_kernel(const float* __restrict__ x, const float* __restrict__ h1,
     float acc = 0.f;
     for (int b = 0; b < B; ++b) {
       const size_t row = (size_t)k * B + b;
-      acc = fmaf(h2[row * D2 + i], g[row * D3 + c], acc);
+      acc = fmaf(f(h2[row * D2 + i]), f(g[row * D3 + c]), acc);
     }
     dw3[t] = acc;
     return;
   }
   t -= n_w3;
   // bias grads: column sums over the batch
-  const float* src;
+  const T* src;
   float* dst;
   int D;
   if (t < (long long)K * D1) {
@@ -444,7 +494,8 @@ fc_bwd_grad_kernel(const float* __restrict__ x, const float* __restrict__ h1,
   }
   const int j = (int)(t % D), k = (int)(t / D);
   float acc = 0.f;
-  for (int b = 0; b < B; ++b) acc = __fadd_rn(acc, src[((size_t)k * B + b) * D + j]);
+  for (int b = 0; b < B; ++b)
+    acc = __fadd_rn(acc, f(src[((size_t)k * B + b) * D + j]));
   dst[t] = acc;
 }
 
@@ -452,87 +503,212 @@ inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
+// ---------------------------------------------------------------------------
+// host-side launchers, one per __global__ function and compute type
+// ---------------------------------------------------------------------------
+template <typename T>
+int conv_pool_fwd(const void* x, const void* w, const void* b, void* a,
+                  void* pat, void* eq, void* relu_m, int K, int B, int H,
+                  int W, int C, int O, int write_res, void* stream) {
+  const size_t smem = (size_t)(9 * C * O + O) * sizeof(T);
+  int rc = set_smem((const void*)conv_pool_fwd_kernel<T>, smem);
+  if (rc) return rc;
+  dim3 grid(blocks_for((long long)B * (H / 2) * (W / 2) * O, kThreads), K);
+  conv_pool_fwd_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w, (const T*)b, (T*)a, (T*)pat, (T*)eq,
+      (T*)relu_m, B, H, W, C, O, write_res);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int conv_bwd_partial(const void* pat, const void* eq, const void* relu_m,
+                     const void* da, void* dz, float* part, int K, int B,
+                     int H, int W, int C, int O, int R, int nchunks,
+                     void* stream) {
+  const size_t smem = (size_t)R * (9 * C + O) * sizeof(T);
+  int rc = set_smem((const void*)conv_bwd_partial_kernel<T>, smem);
+  if (rc) return rc;
+  dim3 grid(nchunks, K);
+  conv_bwd_partial_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)pat, (const T*)eq, (const T*)relu_m, (const T*)da, (T*)dz,
+      part, B, H, W, C, O, R, nchunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int conv_bwd_finish(const float* part, const void* dz, const void* da,
+                    const void* relu_m, const void* w, float* dw, float* db,
+                    void* dx, int K, int B, int H, int W, int C, int O,
+                    int nchunks, void* stream) {
+  const long long n_dx = dx ? (long long)K * B * H * W * C : 0;
+  const unsigned grid = (unsigned)K + blocks_for(n_dx, kThreads);
+  conv_bwd_finish_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      part, (const T*)dz, (const T*)da, (const T*)relu_m, (const T*)w, dw, db,
+      (T*)dx, K, B, H, W, C, O, nchunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fc_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+           const void* b2, const void* w3, const void* b3, void* out,
+           void* h1, void* h2, int K, int B, int F, int D1, int D2, int D3,
+           void* stream) {
+  const size_t smem = (size_t)kFcRows * (F + D1 + D2) * sizeof(T);
+  int rc = set_smem((const void*)fc_fwd_kernel<T>, smem);
+  if (rc) return rc;
+  dim3 grid(blocks_for(B, kFcRows), K);
+  fc_fwd_kernel<T><<<grid, kFcThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
+      (const T*)w3, (const T*)b3, (T*)out, (T*)h1, (T*)h2, B, F, D1, D2, D3);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fc_bwd_act(const void* g, const void* h1, const void* h2, const void* w2,
+               const void* w3, void* dh1, void* dh2, int K, int B, int D1,
+               int D2, int D3, void* stream) {
+  const size_t smem = (size_t)kFcRows * (D3 + D2) * sizeof(T);
+  int rc = set_smem((const void*)fc_bwd_act_kernel<T>, smem);
+  if (rc) return rc;
+  dim3 grid(blocks_for(B, kFcRows), K);
+  fc_bwd_act_kernel<T><<<grid, kFcThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)g, (const T*)h1, (const T*)h2, (const T*)w2, (const T*)w3,
+      (T*)dh1, (T*)dh2, B, D1, D2, D3);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fc_bwd_grad(const void* x, const void* h1, const void* h2, const void* g,
+                const void* dh1, const void* dh2, const void* w1, float* dw1,
+                float* db1, float* dw2, float* db2, float* dw3, float* db3,
+                void* dx, int K, int B, int F, int D1, int D2, int D3,
+                void* stream) {
+  const long long n = (long long)K * F * D1 + (long long)K * B * F +
+                      (long long)K * D1 * D2 + (long long)K * D2 * D3 +
+                      (long long)K * (D1 + D2 + D3);
+  fc_bwd_grad_kernel<T><<<blocks_for(n, kThreads), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)h1, (const T*)h2, (const T*)g, (const T*)dh1,
+      (const T*)dh2, (const T*)w1, dw1, db1, dw2, db2, dw3, db3, (T*)dx, K, B,
+      F, D1, D2, D3);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+#define DISPATCH(is_bf16, fn, ...) \
+  ((is_bf16) ? fn<bf16>(__VA_ARGS__) : fn<float>(__VA_ARGS__))
 
 API const char* fcnn_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-API int fcnn_conv_pool_fwd(const float* x, const float* w, const float* b,
-                           float* a, float* pat, float* eq, float* relu_m,
-                           int K, int B, int H, int W, int C, int O,
-                           int write_res, void* stream) {
-  const size_t smem = (size_t)(9 * C * O + O) * sizeof(float);
-  int rc = set_smem((const void*)conv_pool_fwd_kernel, smem);
-  if (rc) return rc;
-  dim3 grid(blocks_for((long long)B * (H / 2) * (W / 2) * O, kThreads), K);
-  conv_pool_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w, b, a, pat, eq, relu_m, B, H, W, C, O, write_res);
-  return (int)cudaGetLastError();
+// ---- blocked kernels: a cohort of K users per launch ----------------------
+
+API int fcnn_conv_pool_fwd(const void* x, const void* w, const void* b,
+                           void* a, void* pat, void* eq, void* relu_m, int K,
+                           int B, int H, int W, int C, int O, int write_res,
+                           int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, conv_pool_fwd, x, w, b, a, pat, eq, relu_m, K, B,
+                  H, W, C, O, write_res, stream);
 }
 
-API int fcnn_conv_bwd_partial(const float* pat, const float* eq,
-                              const float* relu_m, const float* da, float* dz,
+API int fcnn_conv_bwd_partial(const void* pat, const void* eq,
+                              const void* relu_m, const void* da, void* dz,
                               float* part, int K, int B, int H, int W, int C,
-                              int O, int R, int nchunks, void* stream) {
-  const size_t smem = (size_t)R * (9 * C + O) * sizeof(float);
-  int rc = set_smem((const void*)conv_bwd_partial_kernel, smem);
-  if (rc) return rc;
-  dim3 grid(nchunks, K);
-  conv_bwd_partial_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      pat, eq, relu_m, da, dz, part, B, H, W, C, O, R, nchunks);
-  return (int)cudaGetLastError();
+                              int O, int R, int nchunks, int is_bf16,
+                              void* stream) {
+  return DISPATCH(is_bf16, conv_bwd_partial, pat, eq, relu_m, da, dz, part,
+                  K, B, H, W, C, O, R, nchunks, stream);
 }
 
-API int fcnn_conv_bwd_finish(const float* part, const float* dz,
-                             const float* da, const float* relu_m,
-                             const float* w, float* dw, float* db, float* dx,
+API int fcnn_conv_bwd_finish(const float* part, const void* dz,
+                             const void* da, const void* relu_m,
+                             const void* w, float* dw, float* db, void* dx,
                              int K, int B, int H, int W, int C, int O,
-                             int nchunks, void* stream) {
-  const long long n_dx = dx ? (long long)K * B * H * W * C : 0;
-  const unsigned grid = (unsigned)K + blocks_for(n_dx, kThreads);
-  conv_bwd_finish_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      part, dz, da, relu_m, w, dw, db, dx, K, B, H, W, C, O, nchunks);
-  return (int)cudaGetLastError();
+                             int nchunks, int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, conv_bwd_finish, part, dz, da, relu_m, w, dw, db,
+                  dx, K, B, H, W, C, O, nchunks, stream);
 }
 
-API int fcnn_fc_fwd(const float* x, const float* w1, const float* b1,
-                    const float* w2, const float* b2, const float* w3,
-                    const float* b3, float* out, float* h1, float* h2, int K,
-                    int B, int F, int D1, int D2, int D3, void* stream) {
-  const size_t smem = (size_t)kFcRows * (F + D1 + D2) * sizeof(float);
-  int rc = set_smem((const void*)fc_fwd_kernel, smem);
-  if (rc) return rc;
-  dim3 grid(blocks_for(B, kFcRows), K);
-  fc_fwd_kernel<<<grid, kFcThreads, smem, (cudaStream_t)stream>>>(
-      x, w1, b1, w2, b2, w3, b3, out, h1, h2, B, F, D1, D2, D3);
-  return (int)cudaGetLastError();
+API int fcnn_fc_fwd(const void* x, const void* w1, const void* b1,
+                    const void* w2, const void* b2, const void* w3,
+                    const void* b3, void* out, void* h1, void* h2, int K,
+                    int B, int F, int D1, int D2, int D3, int is_bf16,
+                    void* stream) {
+  return DISPATCH(is_bf16, fc_fwd, x, w1, b1, w2, b2, w3, b3, out, h1, h2, K,
+                  B, F, D1, D2, D3, stream);
 }
 
-API int fcnn_fc_bwd_act(const float* g, const float* h1, const float* h2,
-                        const float* w2, const float* w3, float* dh1,
-                        float* dh2, int K, int B, int D1, int D2, int D3,
+API int fcnn_fc_bwd_act(const void* g, const void* h1, const void* h2,
+                        const void* w2, const void* w3, void* dh1, void* dh2,
+                        int K, int B, int D1, int D2, int D3, int is_bf16,
                         void* stream) {
-  const size_t smem = (size_t)kFcRows * (D3 + D2) * sizeof(float);
-  int rc = set_smem((const void*)fc_bwd_act_kernel, smem);
-  if (rc) return rc;
-  dim3 grid(blocks_for(B, kFcRows), K);
-  fc_bwd_act_kernel<<<grid, kFcThreads, smem, (cudaStream_t)stream>>>(
-      g, h1, h2, w2, w3, dh1, dh2, B, D1, D2, D3);
-  return (int)cudaGetLastError();
+  return DISPATCH(is_bf16, fc_bwd_act, g, h1, h2, w2, w3, dh1, dh2, K, B, D1,
+                  D2, D3, stream);
 }
 
-API int fcnn_fc_bwd_grad(const float* x, const float* h1, const float* h2,
-                         const float* g, const float* dh1, const float* dh2,
-                         const float* w1, float* dw1, float* db1, float* dw2,
-                         float* db2, float* dw3, float* db3, float* dx, int K,
-                         int B, int F, int D1, int D2, int D3, void* stream) {
-  const long long n = (long long)K * F * D1 + (long long)K * B * F +
-                      (long long)K * D1 * D2 + (long long)K * D2 * D3 +
-                      (long long)K * (D1 + D2 + D3);
-  fc_bwd_grad_kernel<<<blocks_for(n, kThreads), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      x, h1, h2, g, dh1, dh2, w1, dw1, db1, dw2, db2, dw3, db3, dx, K, B, F,
-      D1, D2, D3);
-  return (int)cudaGetLastError();
+API int fcnn_fc_bwd_grad(const void* x, const void* h1, const void* h2,
+                         const void* g, const void* dh1, const void* dh2,
+                         const void* w1, float* dw1, float* db1, float* dw2,
+                         float* db2, float* dw3, float* db3, void* dx, int K,
+                         int B, int F, int D1, int D2, int D3, int is_bf16,
+                         void* stream) {
+  return DISPATCH(is_bf16, fc_bwd_grad, x, h1, h2, g, dh1, dh2, w1, dw1, db1,
+                  dw2, db2, dw3, db3, dx, K, B, F, D1, D2, D3, stream);
+}
+
+// ---- single-user kernels: one user's tensors (no K axis) per launch ------
+
+API int fcnn_user_conv_pool_fwd(const void* x, const void* w, const void* b,
+                                void* a, void* pat, void* eq, void* relu_m,
+                                int B, int H, int W, int C, int O,
+                                int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, conv_pool_fwd, x, w, b, a, pat, eq, relu_m, 1, B,
+                  H, W, C, O, 1, stream);
+}
+
+API int fcnn_user_conv_bwd_partial(const void* pat, const void* eq,
+                                   const void* relu_m, const void* da,
+                                   void* dz, float* part, int B, int H, int W,
+                                   int C, int O, int R, int nchunks,
+                                   int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, conv_bwd_partial, pat, eq, relu_m, da, dz, part,
+                  1, B, H, W, C, O, R, nchunks, stream);
+}
+
+API int fcnn_user_conv_bwd_finish(const float* part, const void* dz,
+                                  const void* da, const void* relu_m,
+                                  const void* w, float* dw, float* db,
+                                  void* dx, int B, int H, int W, int C, int O,
+                                  int nchunks, int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, conv_bwd_finish, part, dz, da, relu_m, w, dw, db,
+                  dx, 1, B, H, W, C, O, nchunks, stream);
+}
+
+API int fcnn_user_fc_fwd(const void* x, const void* w1, const void* b1,
+                         const void* w2, const void* b2, const void* w3,
+                         const void* b3, void* out, void* h1, void* h2, int B,
+                         int F, int D1, int D2, int D3, int is_bf16,
+                         void* stream) {
+  return DISPATCH(is_bf16, fc_fwd, x, w1, b1, w2, b2, w3, b3, out, h1, h2, 1,
+                  B, F, D1, D2, D3, stream);
+}
+
+API int fcnn_user_fc_bwd_act(const void* g, const void* h1, const void* h2,
+                             const void* w2, const void* w3, void* dh1,
+                             void* dh2, int B, int D1, int D2, int D3,
+                             int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, fc_bwd_act, g, h1, h2, w2, w3, dh1, dh2, 1, B, D1,
+                  D2, D3, stream);
+}
+
+API int fcnn_user_fc_bwd_grad(const void* x, const void* h1, const void* h2,
+                              const void* g, const void* dh1, const void* dh2,
+                              const void* w1, float* dw1, float* db1,
+                              float* dw2, float* db2, float* dw3, float* db3,
+                              void* dx, int B, int F, int D1, int D2, int D3,
+                              int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, fc_bwd_grad, x, h1, h2, g, dh1, dh2, w1, dw1, db1,
+                  dw2, db2, dw3, db3, dx, 1, B, F, D1, D2, D3, stream);
 }

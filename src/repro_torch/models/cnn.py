@@ -116,24 +116,36 @@ def forward(params, images: torch.Tensor) -> torch.Tensor:
     return _fc(params["fc3"], y, act=False)
 
 
-def forward_im2col(params, images: torch.Tensor) -> torch.Tensor:
+def forward_im2col(params, images: torch.Tensor,
+                   compute_dtype=None) -> torch.Tensor:
     """Full-model forward in plain torch (differentiable by autograd):
     convolutions as (B·H·W, 9·Cin)x(9·Cin, Cout) matmuls, pooling as a
-    reshape-max."""
+    reshape-max whose gradient splits evenly among tied maxima (JAX's rule
+    for ``max``, which the reference's reshape-max pool follows).
+
+    ``compute_dtype`` (bf16 under the mixed-precision policy) casts params
+    and images to it, so every product and activation runs in it, and the
+    logits come back f32; ``None`` keeps the params' dtype."""
+    if compute_dtype is not None:
+        params = {s: {n: t.to(compute_dtype) for n, t in params[s].items()}
+                  for s in params}
+        images = images.to(compute_dtype)
     y = _conv(params["conv1"], images, _pool2)
     y = _conv(params["conv2"], y, _pool2)
     y = y.reshape(y.shape[0], -1)
     y = _fc(params["fc1"], y)
     y = _fc(params["fc2"], y)
-    return _fc(params["fc3"], y, act=False)
+    y = _fc(params["fc3"], y, act=False)
+    return y.float() if compute_dtype is not None else y
 
 
-def forward_im2col_k(params, images: torch.Tensor) -> torch.Tensor:
+def forward_im2col_k(params, images: torch.Tensor,
+                     compute_dtype=None) -> torch.Tensor:
     """Stacked-cohort forward: params leaves (K, ...), images
-    (K, B, H, W, C) -> logits (K, B, classes)."""
+    (K, B, H, W, C) -> logits (K, B, classes), one user at a time."""
     return torch.stack([
         forward_im2col({s: {n: t[k] for n, t in params[s].items()}
-                        for s in params}, images[k])
+                        for s in params}, images[k], compute_dtype)
         for k in range(images.shape[0])])
 
 

@@ -274,21 +274,32 @@ def test_model_module_matches_reference():
 
 
 def test_policy_validation_and_unported_options():
+    """Validation raises what the reference's raises, and every option the
+    reference accepts (bf16, the single-user kernels, im2col; formerly
+    unported) runs: f32 losses (K,) and f32 grads of the params' shapes.
+    Their parity with the reference is in ``tests/test_torch_policy*.py``."""
     with pytest.raises(ValueError, match="kernel"):
         ForwardPolicy(kernel="cuda").validate()
     with pytest.raises(ValueError, match="precision"):
         ForwardPolicy(precision="fp8").validate()
     with pytest.raises(ValueError, match="block_k"):
         ForwardPolicy(block_k=-1).validate()
-    for bad in (ForwardPolicy(precision="bf16"),
-                ForwardPolicy(batch_users=False),
-                ForwardPolicy(kernel="im2col")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_stacked_loss_grad(bad)
-    # both reference kernel names run the port's one path; block_k is a
-    # validated no-op
     params, x, y = _cohort(3)
     tp = params_from_numpy(params, "cpu")
+    for kernel in ops.KERNELS:
+        for precision in ops.PRECISIONS:
+            for users in (True, False):
+                pol = ForwardPolicy(kernel=kernel, precision=precision,
+                                    batch_users=users)
+                loss, g = make_stacked_loss_grad(pol)(tp, torch.tensor(x),
+                                                      torch.tensor(y))
+                assert loss.shape == (3,) and loss.dtype == torch.float32
+                assert bool(torch.isfinite(loss).all())
+                for gg, pp in zip(tree_leaves(g), tree_leaves(tp)):
+                    assert gg.dtype == torch.float32
+                    assert gg.shape == pp.shape
+    # both reference kernel names run the port's one path; block_k is a
+    # validated no-op
     base = make_stacked_loss_grad(ForwardPolicy())(tp, torch.tensor(x),
                                                    torch.tensor(y))
     for pol in (ForwardPolicy(kernel="pallas"), ForwardPolicy(block_k=2)):

@@ -81,14 +81,24 @@ def test_port_round_matches_jax_fused_engine(scheme, extra):
 
 
 def test_unported_engines_raise():
-    # the host engine and the delta codec are ported; bf16 is not yet
+    """Every engine and policy the reference accepts runs (the host engine,
+    the codec, and now bf16, the single-user kernels and im2col: one round
+    each, counts logged, params f32 and finite); a bad kernel name still
+    raises.  Parity with the reference is in the other tests."""
     for kw in ({"use_fused_round": False}, {"use_delta_codec": True}):
         sim = HSFLSimulation(HSFLConfig(n_train=100, n_test=20, n_uavs=4,
                                         **kw), device="cpu")
         assert sim.cfg.use_fused_round == kw.get("use_fused_round", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HSFLSimulation(HSFLConfig(precision="bf16", n_train=100, n_test=20,
-                                  n_uavs=4), device="cpu")
+    for kw in ({"precision": "bf16"}, {"batch_users": False},
+               {"kernel": "im2col", "precision": "bf16"}):
+        sim = HSFLSimulation(HSFLConfig(n_train=100, n_test=20, n_uavs=4,
+                                        k_select=2, local_epochs=1,
+                                        steps_per_epoch=1, **kw),
+                             device="cpu")
+        log, _ = sim.run_round(1, [])
+        assert log.selected >= 0
+        for t in jax.tree_util.tree_leaves(params_to_numpy(sim.params)):
+            assert t.dtype == np.float32 and np.isfinite(t).all()
     with pytest.raises(ValueError, match="kernel"):
         HSFLSimulation(HSFLConfig(kernel="nope", n_train=100, n_test=20,
                                   n_uavs=4), device="cpu")

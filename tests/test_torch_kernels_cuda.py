@@ -4,6 +4,10 @@ the card, and the port's import hygiene.
 The kernel tests need an NVIDIA card (marker ``cuda``): they skip, with a
 reason, where ``torch.cuda.is_available()`` is False; on the card run them
 with ``PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py``.
+The single-user kernels are held to their twins and bitwise to the
+blocked kernels at K=1, and the bf16 instantiations to the bf16 twins
+(exact for the conv forward, two bf16 ulps of the largest magnitude
+elsewhere).
 They use the shapes ``chip_smoke.py`` checks: the main path's cohort (K=10,
 B=10, both conv layers), an odd cohort (K=3, B=7), the eval shape (K=1,
 B=1000) and an all-ones pool-tie cohort.  The conv forward sums in the
@@ -170,6 +174,178 @@ def test_round_on_card_matches_cpu(cuda):
         assert float((a - b).abs().max()) < 1e-4
 
 
+BF16_RTOL = 2 ** -6     # two bf16 ulps of the largest magnitude
+
+
+def _cast(tree, dtype):
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.to(dtype), tree)
+
+
+def _user(params, k=0):
+    return {n: {leaf: t[k].contiguous() for leaf, t in params[n].items()}
+            for n in params}
+
+
+def _within(got, want, rtol):
+    scale = max(float(want.float().abs().max()), 1e-30)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rtol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("ones", [False, True], ids=["digits", "ones-tie"])
+def test_single_user_kernels_match_twins_and_blocked(cuda, dtype, ones):
+    """The four single-user kernels on one user (B=10) against their twins,
+    and bitwise against the blocked kernels at K=1 (the same contraction
+    and the same summation order); the conv forward equals its twin
+    exactly at both dtypes.  Launch counts: one per forward call, two per
+    backward call."""
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    rtol = RTOL if dtype == "f32" else BF16_RTOL
+    params, x = _cohort(1, 10, 4, cuda, ones)
+    params, x = _cast(params, dt), x.to(dt)
+    p = _user(params)
+    knl.reset_launches()
+    inp, inp_k = x[0], x
+    for layer in ("conv1", "conv2"):
+        w, b = p[layer]["w"], p[layer]["b"]
+        a1, r1 = knl.conv_pool_fwd(inp, w, b)
+        ap, rp = ref.conv_pool_fwd(inp, w, b)
+        ab, rb = knl.conv_pool_fwd_k(inp_k, params[layer]["w"],
+                                     params[layer]["b"])
+        for got, want, blocked in zip((a1, *r1), (ap, *rp), (ab, *rb)):
+            assert got.dtype == dt
+            assert torch.equal(got, want) and torch.equal(got, blocked[0])
+        da = (torch.randn(ap.shape, device=cuda) * 0.01).to(dt)
+        for need_dx in (False, True):
+            got = knl.conv_pool_bwd(rp, w, da, need_dx)
+            want = ref.conv_pool_bwd(rp, w, da, need_dx)
+            blocked = knl.conv_pool_bwd_k(tuple(r.unsqueeze(0) for r in rp),
+                                          params[layer]["w"],
+                                          da.unsqueeze(0), need_dx)
+            for g, wv, bk, nm in zip(got, want, blocked, ("dw", "db", "dx")):
+                if wv is None:
+                    assert g is None and bk is None
+                    continue
+                assert g.dtype == (dt if nm == "dx" else torch.float32)
+                assert torch.equal(g, bk[0]), nm
+                _within(g, wv, RTOL if nm != "dx" else rtol)
+        inp, inp_k = ap, ap.unsqueeze(0)
+    flat = inp.reshape(10, -1).contiguous()
+    lk, rk = knl.fc_chain_fwd(flat, p)
+    lp, rp = ref.fc_chain_fwd(flat, p)
+    lb, rb = knl.fc_chain_fwd_k(flat.unsqueeze(0), params)
+    for got, want, blocked in zip((lk, *rk), (lp, *rp), (lb, *rb)):
+        assert torch.equal(got, blocked[0])
+        _within(got, want, rtol)
+    g = (torch.randn((10, 10), device=cuda) * 0.1).to(dt)
+    gk, dk = knl.fc_chain_bwd(flat, rp, p, g)
+    gp, dp = ref.fc_chain_bwd(flat, rp, p, g)
+    gb, db = knl.fc_chain_bwd_k(flat.unsqueeze(0),
+                                tuple(r.unsqueeze(0) for r in rp), params,
+                                g.unsqueeze(0))
+    assert torch.equal(dk, db[0])
+    _within(dk, dp, rtol)
+    for layer in gp:
+        for leaf in gp[layer]:
+            assert gk[layer][leaf].dtype == torch.float32
+            assert torch.equal(gk[layer][leaf], gb[layer][leaf][0])
+            _within(gk[layer][leaf], gp[layer][leaf], rtol)
+    assert {n: knl.LAUNCHES[n] for n in ("conv_pool_fwd", "conv_pool_bwd",
+                                         "fc_chain_fwd", "fc_chain_bwd")} \
+        == {"conv_pool_fwd": 2, "conv_pool_bwd": 8, "fc_chain_fwd": 1,
+            "fc_chain_bwd": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bs,ones", COHORTS, ids=IDS)
+def test_bf16_blocked_kernels_match_twins(cuda, k, bs, ones):
+    """The blocked kernels' bf16 instantiations against the twins at bf16:
+    the conv forward (tap-order sum, one rounding) exactly; everything
+    else within two bf16 ulps of the largest magnitude (bf16 outputs) or
+    to summation order (f32 grads from the same inputs)."""
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    bf = torch.bfloat16
+    params, x = _cohort(k, bs, 5, cuda, ones)
+    params, x = _cast(params, bf), x.to(bf)
+    inp = x
+    for layer in ("conv1", "conv2"):
+        w, b = params[layer]["w"], params[layer]["b"]
+        ak, rk = knl.conv_pool_fwd_k(inp, w, b)
+        ap, rp = ref.conv_pool_fwd_k(inp, w, b)
+        for got, want in zip((ak, *rk), (ap, *rp)):
+            assert got.dtype == bf and torch.equal(got, want)
+        da = (torch.randn(ap.shape, device=cuda) * 0.01).to(bf)
+        got = knl.conv_pool_bwd_k(rp, w, da, True)
+        want = ref.conv_pool_bwd_k(rp, w, da, True)
+        _within(got[0], want[0], RTOL)
+        _within(got[1], want[1], RTOL)
+        _within(got[2], want[2], BF16_RTOL)
+        inp = ap
+    flat = inp.reshape(k, bs, -1).contiguous()
+    lk, rk = knl.fc_chain_fwd_k(flat, params)
+    lp, rp = ref.fc_chain_fwd_k(flat, params)
+    for got, want in zip((lk, *rk), (lp, *rp)):
+        _within(got, want, BF16_RTOL)
+    g = (torch.randn((k, bs, 10), device=cuda) * 0.1).to(bf)
+    gk, dk = knl.fc_chain_bwd_k(flat, rp, params, g)
+    gp, dp = ref.fc_chain_bwd_k(flat, rp, params, g)
+    _within(dk, dp, BF16_RTOL)
+    for layer in gp:
+        for leaf in gp[layer]:
+            assert gk[layer][leaf].dtype == torch.float32
+            _within(gk[layer][leaf], gp[layer][leaf], BF16_RTOL)
+    with pytest.raises(TypeError, match="bfloat16"):
+        knl.conv_pool_fwd_k(x, params["conv1"]["w"].float(),
+                            params["conv1"]["b"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"precision": "bf16"}, {"batch_users": False},
+    {"precision": "bf16", "batch_users": False},
+    {"kernel": "im2col", "precision": "bf16"}],
+    ids=["bf16", "single-f32", "single-bf16", "im2col-bf16"])
+def test_policy_round_on_card_matches_cpu(cuda, kw):
+    """One fused round under each new policy on the card and on the CPU
+    from the same params: equal counts; params within 1e-4 at f32, and at
+    bf16 within 2% relative Frobenius per leaf (a one-ulp bf16 difference
+    from the f32 summation order moves later roundings).  The kernel
+    policies launch the kernels they name."""
+    from repro_torch.core.hsfl import HSFLConfig, HSFLSimulation
+    from repro_torch.kernels.fused_cnn import kernel as knl
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = HSFLConfig(rounds=1, n_uavs=8, k_select=4, n_train=400,
+                     n_test=100, steps_per_epoch=2, local_epochs=3, seed=4,
+                     **kw)
+    p0 = init_cnn(0, "cpu")
+    out = []
+    for dev in (cuda, "cpu"):
+        sim = HSFLSimulation(cfg, device=dev)
+        sim.params = tree_map(lambda t: t.to(sim.device).clone(), p0)
+        knl.reset_launches()
+        log, _ = sim.run_round(1, [])
+        if dev is cuda:
+            single = not kw.get("batch_users", True)
+            key = "conv_pool_fwd" if single else "conv_pool_fwd_k"
+            if kw.get("kernel") != "im2col":
+                assert knl.LAUNCHES[key] > 0
+        out.append(((log.arrived_final, log.used_snapshot, log.dropped,
+                     log.bytes_sent), [t.cpu() for t in
+                                       tree_leaves(sim.params)]))
+    assert out[0][0] == out[1][0]
+    for a, b in zip(out[0][1], out[1][1]):
+        assert a.dtype == torch.float32
+        if kw.get("precision") == "bf16":
+            assert float((a - b).norm() / b.norm()) < 0.02
+        else:
+            assert float((a - b).abs().max()) < 1e-4
+
+
 def codec_input(m, block, bits, seed, device):
     """Gaussian rows, all-zero rows and rows whose lanes sit on exact
     k + 0.5 quanta of a power-of-two scale."""
@@ -277,6 +453,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.core.hsfl, repro_torch.kernels._build, "
             "repro_torch.kernels.fused_cnn.kernel, "
+            "repro_torch.kernels.fused_cnn.ops, "
+            "repro_torch.core.fused_round, repro_torch.models.cnn, "
             "repro_torch.kernels.delta_codec.kernel, "
             "repro_torch.serving.fl_server, repro_torch.launch.serve_fl\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
