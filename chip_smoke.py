@@ -7,8 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. card: name and power limit from nvidia-smi, torch and CUDA versions.
    TF32 is switched off for matmuls and cuDNN, so every f32 product on the
    card (kernels and plain twins alike) runs in full f32;
-2. build: the fused-CNN and the delta-codec kernels from the sources in
-   this checkout, one nvcc each, in parallel (sm_90a);
+2. build: the fused-CNN, delta-codec, flash-attention and WKV6 kernels
+   from the sources in this checkout, one nvcc each, in parallel (sm_90a);
 3. kernels vs their plain PyTorch twins on the card.  Blocked fused CNN:
    the main path's shapes (K=10 users, batch 10, both conv layers) at f32
    and bf16, an odd cohort (K=3, B=7), the eval shape (K=1, B=1000) and an
@@ -42,7 +42,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    and of the codec server, and one round under bf16 and one under
    ``batch_users=False``, from the same seed and params on both; counts
    must be identical and params and accuracy close;
-8. the card's line, the kernels' JSON line, and the result line.
+8. the zoo path.  (a) flash attention and WKV6 against their twins at
+   Llama-3.2-1B's and RWKV6-7B's prefill shapes (B=2, S=2048; masks,
+   ragged S, Sq < Sk; bf16 and f32), each timed beside its twin, its
+   bound and, for attention, ``scaled_dot_product_attention`` (a
+   yardstick only); (b) ``make_prefill_step`` on Llama-3.2-1B as
+   configured and on RWKV6-7B at full width with 4 of its 32 layers, B=2
+   x 2048-token prompts, counts reset just before: one kernel launch per
+   layer; (c) the kernel path against the cache path (the token loop of
+   ``serving.decode.prefill``) over a 256-token prompt at bf16 and f32;
+   (d) ``launch/serve.py`` on Llama-3.2-1B and ``generate`` on the 4-layer
+   RWKV6-7B, tokens per second; (e) card vs CPU at the reduced size:
+   logits, and greedy tokens equal at f32.  The phase prints its wall
+   time;
+9. the card's line, the kernels' JSON line, and the result line.
 
 It imports nothing of JAX.  Without a CUDA card it exits 2 and prints no
 result.
@@ -93,6 +106,7 @@ PARAM_ATOL = 1e-4
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16, tensor cores, dense
 
 # where each TPU kernel lives in the JAX package (pallas_call lines)
 REPLACES = {
@@ -106,15 +120,22 @@ REPLACES = {
     "fc_chain_bwd_k": "src/repro/kernels/fused_cnn/kernel.py:441",
     "quantize_blocks": "src/repro/kernels/delta_codec/kernel.py:75",
     "dequantize_blocks": "src/repro/kernels/delta_codec/kernel.py:92",
+    "flash_attention_bh": "src/repro/kernels/flash_attention/kernel.py:99",
+    "wkv6_bh": "src/repro/kernels/wkv6/kernel.py:61",
 }
 FUSED_CNN = ("conv_pool_fwd_k", "conv_pool_bwd_k", "fc_chain_fwd_k",
              "fc_chain_bwd_k")
 USER_CNN = ("conv_pool_fwd", "conv_pool_bwd", "fc_chain_fwd", "fc_chain_bwd")
 CODEC = ("quantize_blocks", "dequantize_blocks")
+ZOO = ("flash_attention_bh", "wkv6_bh")
 SOURCES = {**{n: "src/repro_torch/kernels/fused_cnn/csrc/fused_cnn.cu"
               for n in FUSED_CNN + USER_CNN},
            **{n: "src/repro_torch/kernels/delta_codec/csrc/delta_codec.cu"
-              for n in CODEC}}
+              for n in CODEC},
+           "flash_attention_bh":
+               "src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+           "wkv6_bh": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"}
 # scratch for the serving phase's checkpoints (git-ignored)
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 # __global__ launches per wrapper call
@@ -155,16 +176,32 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _self_device_us(ev) -> float:
+    return float(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0)))
+
+
+def _device_events(prof) -> list:
+    """A profile's events on the device (kernels, copies), by name.  A host
+    op (``aten::mm``) carries the device time of the kernels it launched
+    as its own, so counting host events too would count those kernels
+    twice.  The profiler's own buffer bookkeeping is left out."""
+    from torch.autograd import DeviceType
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and not ev.key.startswith("Activity Buffer")]
+
+
 def _device_us(prof) -> float:
-    """Summed device time (us) of a profile's kernels and copies; the
-    profiler's own buffer bookkeeping is left out."""
-    total = 0.0
-    for ev in prof.key_averages():
-        if ev.key.startswith("Activity Buffer"):
-            continue
-        total += float(getattr(ev, "self_device_time_total",
-                               getattr(ev, "self_cuda_time_total", 0.0)))
-    return total
+    """Summed device time (us) of a profile's kernels and copies."""
+    return sum(_self_device_us(ev) for ev in _device_events(prof))
+
+
+def print_top_kernels(prof, top: int) -> None:
+    for ev in sorted(_device_events(prof), key=_self_device_us,
+                     reverse=True)[:top]:
+        print(f"    {_self_device_us(ev) / 1e3:8.3f} ms  x{ev.count:5d}  "
+              f"{ev.key[:70]}")
 
 
 def device_ms(fn, iters: int) -> float:
@@ -186,10 +223,11 @@ def device_ms(fn, iters: int) -> float:
     return us / 1e3 / iters
 
 
-def bound_ms(nbytes: float, flops: float):
-    """The least time for the work: bytes over HBM rate vs f32 operations
-    over the f32 peak, whichever is larger."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
+    """The least time for the work: bytes over HBM rate vs operations over
+    the peak ``rate`` for their type (f32 by default), whichever is
+    larger."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -710,9 +748,11 @@ def expected_launches(cfg, rows) -> dict:
 
 def reset_all_launches():
     from repro_torch.kernels.delta_codec import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fused_cnn import kernel as fk
-    fk.reset_launches()
-    dk.reset_launches()
+    from repro_torch.kernels.wkv6 import kernel as wk
+    for mod in (fk, dk, fa, wk):
+        mod.reset_launches()
 
 
 def bf16_launches() -> dict:
@@ -722,8 +762,10 @@ def bf16_launches() -> dict:
 
 def all_launches() -> dict:
     from repro_torch.kernels.delta_codec import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fused_cnn import kernel as fk
-    return {**fk.LAUNCHES, **dk.LAUNCHES}
+    from repro_torch.kernels.wkv6 import kernel as wk
+    return {**fk.LAUNCHES, **dk.LAUNCHES, **fa.LAUNCHES, **wk.LAUNCHES}
 
 
 def params_finite(params) -> bool:
@@ -883,10 +925,7 @@ def device_busy_share(**kw):
           f"{wall * 1e3:.1f} ms, "
           f"device busy {dev_us / 1e3:.2f} ms -> busy share {share:.3f}, "
           f"idle share {1 - share:.3f}")
-    dev = lambda e: float(getattr(e, "self_device_time_total",
-                                  getattr(e, "self_cuda_time_total", 0.0)))
-    for ev in sorted(prof.key_averages(), key=dev, reverse=True)[:12]:
-        print(f"    {dev(ev) / 1e3:8.3f} ms  x{ev.count:5d}  {ev.key[:70]}")
+    print_top_kernels(prof, 12)
     return share
 
 
@@ -999,10 +1038,7 @@ def serving_busy_share():
           f"the profiler: wall {wall * 1e3:.1f} ms, device busy "
           f"{dev_us / 1e3:.2f} ms -> busy share {share:.3f}, idle share "
           f"{1 - share:.3f}")
-    dev = lambda e: float(getattr(e, "self_device_time_total",
-                                  getattr(e, "self_cuda_time_total", 0.0)))
-    for ev in sorted(prof.key_averages(), key=dev, reverse=True)[:10]:
-        print(f"    {dev(ev) / 1e3:8.3f} ms  x{ev.count:5d}  {ev.key[:70]}")
+    print_top_kernels(prof, 10)
     return wall_plain * 1e3, share
 
 
@@ -1112,6 +1148,393 @@ def card_vs_cpu():
             PARAM_ATOL, cfg.n_test)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the model zoo's inference path
+# ---------------------------------------------------------------------------
+
+# kernel vs twin in the zoo, relative to the largest magnitude: f32 as the
+# fused CNN (summation order only); bf16 outputs are rounded once from f32
+# values that differ by summation order, so by at most one bf16 ulp
+ZOO_BF16_RTOL = 2 ** -7
+# the zoo's forward at full width, kernel path (full-sequence forward) vs
+# cache path (the token loop), last-position logits: at f32 the two sum in
+# another order (1e-3 of the largest magnitude); at bf16 the cache path
+# rounds the scores to bf16 before the softmax where the kernel keeps them
+# in f32, and every layer's bf16 roundings compound: relative Frobenius
+# error 5% (0.7% at the reduced size on the CPU, tests/test_torch_zoo.py)
+ZOO_CACHE_F32_RTOL = 1e-3
+ZOO_CACHE_BF16_FROB = 0.05
+# card vs CPU at the reduced size, the CPU tests' bounds against JAX:
+# f32 logits within 1e-4 of the largest magnitude, bf16 3% Frobenius
+ZOO_CPU_F32_RTOL = 1e-4
+ZOO_CPU_BF16_FROB = 0.03
+# the zoo's cells: Llama-3.2-1B as configured, RWKV6-7B at full width with
+# the depth cut to 4 of its 32 layers; prompts of B x S tokens
+ZOO_B, ZOO_S = 2, 2048
+RWKV_LAYERS = 4
+CACHE_PROMPT = 256
+
+
+def zoo_configs(reduced: bool = False):
+    """(Llama-3.2-1B, RWKV6-7B cut to RWKV_LAYERS layers), or their
+    reduced variants, llama with 2 kv heads (phase 8e)."""
+    from repro_torch.configs import get_config
+    llama, rwkv = get_config("llama3.2-1b"), get_config("rwkv6-7b")
+    if reduced:
+        return llama.reduced().replace(num_kv_heads=2), rwkv.reduced()
+    return llama, rwkv.replace(num_layers=RWKV_LAYERS)
+
+
+def flash_inputs(b, h, kv, sq, sk, d, dtype, seed):
+    import torch
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    q = torch.randn(b * h, sq, d, device=DEVICE, generator=g).to(dtype)
+    k = torch.randn(b * kv, sk, d, device=DEVICE, generator=g).to(dtype)
+    v = torch.randn(b * kv, sk, d, device=DEVICE, generator=g).to(dtype)
+    return q, k, v
+
+
+def wkv_inputs(bh, s, d, dtype, seed):
+    import torch
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    r, k, v = (torch.randn(bh, s, d, device=DEVICE, generator=g).mul(0.5)
+               .to(dtype) for _ in range(3))
+    w = torch.rand(bh, s, d, device=DEVICE, generator=g) * 0.4 + 0.55
+    u = torch.randn(bh, d, device=DEVICE, generator=g) * 0.1
+    return r, k, v, w, u
+
+
+def check_zoo_kernels(chk: Check, s: int = ZOO_S):
+    """Both zoo kernels vs their twins on the card at the models' shapes:
+    flash attention at Llama-3.2-1B's prefill (B=2, 32 q / 8 kv heads,
+    D=64) causal, with a window of 256, non-causal, and a ragged S causal
+    and not, each at bf16 and at f32 (whose tolerance a wrong mask on
+    small rows could not pass), and Sq < Sk; WKV6 at RWKV6-7B's (B=2 x 64
+    heads, D=64) with r/k/v at bf16 and w in f32, and all f32 (y and the
+    final state)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.wkv6 import kernel as wk, ref as wr
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("causal bf16", (ZOO_B, 32, 8, s, s, 64, True, 0, bf)),
+             ("causal f32", (ZOO_B, 32, 8, s, s, 64, True, 0, f32)),
+             ("window 256 bf16", (ZOO_B, 32, 8, s, s, 64, True, 256, bf)),
+             ("window 256 f32", (ZOO_B, 32, 8, s, s, 64, True, 256, f32)),
+             ("non-causal bf16", (ZOO_B, 32, 8, s, s, 64, False, 0, bf)),
+             ("non-causal f32", (ZOO_B, 32, 8, s, s, 64, False, 0, f32)),
+             (f"ragged S={s - 48} bf16",
+              (ZOO_B, 32, 8, s - 48, s - 48, 64, True, 0, bf)),
+             (f"ragged S={s - 48} f32",
+              (ZOO_B, 32, 8, s - 48, s - 48, 64, True, 0, f32)),
+             # the causal mask hides the zero-filled tail keys from every
+             # real row: only without it does the tail mask show
+             (f"ragged S={s - 48} non-causal bf16",
+              (ZOO_B, 32, 8, s - 48, s - 48, 64, False, 0, bf)),
+             (f"ragged S={s - 48} non-causal f32",
+              (ZOO_B, 32, 8, s - 48, s - 48, 64, False, 0, f32)),
+             ("Sq=100 < Sk=300 f32", (1, 4, 2, 100, 300, 64, True, 0, f32)),
+             ("window 20 < tile, D=32 f32",
+              (2, 4, 2, 128, 128, 32, True, 20, f32))]
+    for i, (label, (b, h, kv, sq, sk, d, causal, window, dt)) in \
+            enumerate(cases):
+        q, k, v = flash_inputs(b, h, kv, sq, sk, d, dt, seed=100 + i)
+        got = fk.flash_attention_bh(q, k, v, group_size=h // kv,
+                                    causal=causal, window=window)
+        want = fr.flash_attention_bh_ref(q, k, v, h // kv, causal, window)
+        chk.close("flash_attention_bh", label, got, want,
+                  rtol=ZOO_BF16_RTOL if dt == bf else KERNEL_RTOL)
+    for i, (label, (bh, sl, d, dt)) in enumerate(
+            [("rwkv6-7b r/k/v bf16, w f32", (ZOO_B * 64, s, 64, bf)),
+             ("rwkv6-7b all f32", (ZOO_B * 64, s, 64, f32)),
+             ("ragged S=77, D=32 f32", (16, 77, 32, f32))]):
+        r, k, v, w, u = wkv_inputs(bh, sl, d, dt, seed=200 + i)
+        y, sf = wk.wkv6_bh(r, k, v, w, u)
+        yr, sr = wr.wkv6_bh_ref(r, k, v, w, u)
+        chk.close("wkv6_bh", f"{label} y", y, yr,
+                  rtol=ZOO_BF16_RTOL if dt == bf else KERNEL_RTOL)
+        chk.close("wkv6_bh", f"{label} S_final", sf, sr)
+
+
+def time_zoo_kernels() -> dict:
+    """Each zoo kernel vs its twin, the library call where there is one,
+    and the bound, at the main path's shapes (bf16, as the models run),
+    and at f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.wkv6 import kernel as wk, ref as wr
+    out = {}
+    h, kv, d = 32, 8, 64
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = flash_inputs(ZOO_B, h, kv, ZOO_S, ZOO_S, d, dt, seed=7)
+        o = fk.flash_attention_bh(q, k, v, group_size=h // kv)
+        live = int(fr.live_mask(ZOO_S, ZOO_S, True, 0, DEVICE).sum())
+        flops = 4.0 * d * live * ZOO_B * h          # q.k and p.v, FMA = 2
+        rate = BF16_FLOPS_PER_S if tag == "bf16" else F32_FLOPS_PER_S
+        b_ms, by = bound_ms(nbytes(q, k, v, o), flops, rate)
+        # the library yardstick, never on the path: SDPA on the same
+        # q/k/v in (B, H, S, D), kv heads repeated
+        qh = q.reshape(ZOO_B, h, ZOO_S, d)
+        kh = k.reshape(ZOO_B, kv, ZOO_S, d).repeat_interleave(h // kv, 1)
+        vh = v.reshape(ZOO_B, kv, ZOO_S, d).repeat_interleave(h // kv, 1)
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), iters=20)
+        ms = device_ms(lambda: fk.flash_attention_bh(
+            q, k, v, group_size=h // kv), iters=10)
+        plain = device_ms(lambda: fr.flash_attention_bh_ref(
+            q, k, v, h // kv), iters=3)
+        out[tag] = {"flash_attention_bh": {
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib}}
+        print(f"  flash_attention_bh {tag} B={ZOO_B} S={ZOO_S} H={h} KV={kv} "
+              f"D={d} causal: kernel {ms * 1e3:9.2f} us  twin "
+              f"{plain * 1e3:9.2f} us  SDPA {lib * 1e3:8.2f} us  bound "
+              f"{b_ms * 1e3:6.2f} us ({by}, {nbytes(q, k, v, o) / 1e6:.1f} "
+              f"MB, {flops / 1e9:.1f} GFLOP)")
+        r, kk, vv, w, u = wkv_inputs(ZOO_B * 64, ZOO_S, 64, dt, seed=8)
+        y, sf = wk.wkv6_bh(r, kk, vv, w, u)
+        # f32 ops, FMA = 2, per head and step: y_j = sum_i r_i S_ij (an
+        # FMA a state element) + v_j * sum_i r_i u_i k_i (O(D): a product
+        # and an FMA per i, an FMA per j), then S <- w S + k v^T (a
+        # product and an FMA a state element): 5 D^2 + 5 D
+        wflops = 5.0 * 64 * (64 + 1) * ZOO_S * ZOO_B * 64
+        wb_ms, wby = bound_ms(nbytes(r, kk, vv, w, u, y, sf), wflops)
+        wms = device_ms(lambda: wk.wkv6_bh(r, kk, vv, w, u), iters=10)
+        wplain = device_ms(lambda: wr.wkv6_bh_ref(r, kk, vv, w, u), iters=1)
+        out[tag]["wkv6_bh"] = {"ms": wms, "plain_ms": wplain,
+                               "bound_ms": wb_ms, "bound_by": wby,
+                               "library_ms": None}
+        print(f"  wkv6_bh {tag} BH={ZOO_B * 64} S={ZOO_S} D=64: kernel "
+              f"{wms * 1e3:9.2f} us  twin {wplain * 1e3:9.2f} us  bound "
+              f"{wb_ms * 1e3:6.2f} us ({wby}, "
+              f"{nbytes(r, kk, vv, w, u, y, sf) / 1e6:.1f} MB, "
+              f"{wflops / 1e9:.1f} GFLOP)")
+    print("  wkv6_bh has no library yardstick: no single PyTorch call runs "
+          "the WKV recurrence")
+    return out
+
+
+def zoo_prefill(cfg, label: str, iters: int = 3):
+    """The main path of the zoo: ``make_prefill_step`` on B x S prompts at
+    full width, weights from the port's init (one generator seed).  Counts
+    are set to 0 just before the first prefill and read just after it;
+    returns (model, params, launches, ms per prefill)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.training.step import make_prefill_step
+    model = build_model(cfg, DEVICE)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    n_params = model.param_count(params)
+    tokens = torch.randint(0, cfg.vocab_size, (ZOO_B, ZOO_S),
+                           generator=torch.Generator().manual_seed(1)
+                           ).to(DEVICE)
+    step = make_prefill_step(model)
+    reset_all_launches()
+    logits = step(params, {"tokens": tokens})
+    sync()
+    launches = all_launches()
+    if tuple(logits.shape) != (ZOO_B, ZOO_S, cfg.vocab_padded) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{label}: prefill logits of shape "
+                             f"{tuple(logits.shape)} are not all finite")
+    del logits
+    times = []
+    for _ in range(iters):
+        sync()
+        t0 = time.perf_counter()
+        step(params, {"tokens": tokens})
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    profile_step(lambda: step(params, {"tokens": tokens}),
+                 f"{label} prefill")
+    print(f"  {label} prefill: {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params ({cfg.param_dtype}, compute "
+          f"{cfg.dtype}), B={ZOO_B} x S={ZOO_S}: {ms:.1f} ms per prefill "
+          f"(median of {iters}, first {times[0]:.1f}), "
+          f"{ZOO_B * ZOO_S / ms * 1e3:.0f} prompt tokens/s; launches "
+          f"{ {n: launches[n] for n in ZOO} }")
+    return model, params, {n: launches[n] for n in ZOO}, ms
+
+
+def profile_step(fn, label: str, top: int = 10):
+    """One call of ``fn`` under torch.profiler: wall, device busy share,
+    and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = _device_us(prof)
+    if dev_us <= 0:
+        print(f"  {label}: the profiler recorded no device time")
+        return
+    print(f"  {label} under the profiler: wall {wall * 1e3:.1f} ms, device "
+          f"busy {dev_us / 1e3:.2f} ms -> busy share "
+          f"{dev_us / 1e6 / wall:.3f}")
+    print_top_kernels(prof, top)
+
+
+def zoo_kernel_vs_cache(model, params, label: str, prompt: int = CACHE_PROMPT):
+    """The reference's decode-matches-forward test at full width: the
+    full-sequence forward through the kernel, its logits at the last
+    position, against ``serving.decode.prefill`` walking the cache (or the
+    RWKV state) token by token with no kernel; at the config's bf16 and
+    at f32, from the same params."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving.decode import prefill
+    tokens = torch.randint(0, model.cfg.vocab_size, (1, prompt),
+                           generator=torch.Generator().manual_seed(2)
+                           ).to(DEVICE)
+    for dtype in ("bfloat16", "float32"):
+        m = build_model(model.cfg.replace(dtype=dtype), DEVICE)
+        full, _ = m.forward(params, {"tokens": tokens})
+        sync()
+        t0 = time.perf_counter()
+        last, _, _ = prefill(m, params, tokens, context_len=prompt)
+        sync()
+        loop_ms = (time.perf_counter() - t0) * 1e3
+        a, b = full[:, -1].float(), last[:, 0].float()
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        if dtype == "float32":
+            err, rel = rel_err(a, b)
+            ok, what = rel <= ZOO_CACHE_F32_RTOL, (
+                f"max abs {err:.3e}, rel {rel:.3e} (tol "
+                f"{ZOO_CACHE_F32_RTOL:.0e})")
+        else:
+            frob = float((a - b).norm() / b.norm())
+            ok, what = frob <= ZOO_CACHE_BF16_FROB, (
+                f"relative Frobenius {frob:.3e} (tol {ZOO_CACHE_BF16_FROB})")
+        print(f"  {label} {dtype}: kernel path vs cache path over a "
+              f"{prompt}-token prompt: {what}, argmax agrees {agree:.2f}; "
+              f"token loop {loop_ms:.0f} ms {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} {dtype}: the kernel path and the "
+                                 "cache path disagree")
+
+
+def zoo_serving(rwkv_model, rwkv_params) -> dict:
+    """``launch/serve.py`` on Llama-3.2-1B as a user runs it (greedy), and
+    the same ``generate`` on the 4-layer RWKV6-7B; tokens per second."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import generate
+    batch, plen, new = 4, 64, 32
+    argv = ["--device", DEVICE, "--arch", "llama3.2-1b", "--batch",
+            str(batch), "--prompt-len", str(plen), "--max-new", str(new)]
+    sync()
+    t0 = time.perf_counter()
+    if serve.main(argv) != 0:
+        raise AssertionError("launch/serve.py failed")
+    sync()
+    llama_s = time.perf_counter() - t0
+    prompt = torch.randint(0, rwkv_model.cfg.vocab_size, (batch, plen),
+                           generator=torch.Generator().manual_seed(3)
+                           ).to(DEVICE)
+    reset_all_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = generate(rwkv_model, rwkv_params, prompt, max_new=new,
+                   context_len=plen + new)
+    sync()
+    rwkv_s = time.perf_counter() - t0
+    if tuple(out.shape) != (batch, new) or int(out.max()) >= \
+            rwkv_model.cfg.vocab_padded or int(out.min()) < 0:
+        raise AssertionError(f"rwkv6 generate gave {tuple(out.shape)} "
+                             "tokens out of the vocab")
+    rate = batch * new / rwkv_s
+    print(f"  serve.main {' '.join(argv)}: {llama_s:.2f} s with init "
+          f"(its own tok/s line above); rwkv6-7b ({RWKV_LAYERS} layers) "
+          f"generate B={batch} prompt={plen} new={new}: {rwkv_s:.2f} s, "
+          f"{rate:.1f} new tok/s (prompt fed token by token); launches "
+          f"{ {n: all_launches()[n] for n in ZOO} } (decode runs no kernel)")
+    return {"llama_serve_s": llama_s, "rwkv_generate_s": rwkv_s,
+            "rwkv_tok_s": rate}
+
+
+def zoo_card_vs_cpu():
+    """The reduced configs (llama with 2 kv heads, rwkv6) at bf16 and f32:
+    the card's kernel path against the CPU twins from one set of params,
+    logits and greedy tokens (equal at f32)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving import generate
+    from repro_torch.utils.tree import tree_map
+    for cfg in zoo_configs(reduced=True):
+        for dtype in ("float32", "bfloat16"):
+            c = cfg.replace(dtype=dtype)
+            m_gpu, m_cpu = build_model(c, DEVICE), build_model(c, "cpu")
+            p_cpu = m_cpu.init(torch.Generator().manual_seed(4))
+            p_gpu = tree_map(lambda t: t.to(DEVICE), p_cpu)
+            tokens = torch.randint(0, c.vocab_size, (2, 128),
+                                   generator=torch.Generator().manual_seed(5))
+            want, _ = m_cpu.forward(p_cpu, {"tokens": tokens})
+            got, _ = m_gpu.forward(p_gpu, {"tokens": tokens.to(DEVICE)})
+            got, want = got.float().cpu(), want.float()
+            t_cpu = generate(m_cpu, p_cpu, tokens[:, :16], max_new=16,
+                             context_len=32)
+            t_gpu = generate(m_gpu, p_gpu, tokens[:, :16].to(DEVICE),
+                             max_new=16, context_len=32).cpu()
+            same = float((t_cpu == t_gpu).float().mean())
+            if dtype == "float32":
+                err, rel = rel_err(got, want)
+                ok = rel <= ZOO_CPU_F32_RTOL and same == 1.0
+                what = f"logits rel {rel:.3e} (tol {ZOO_CPU_F32_RTOL:.0e})"
+            else:
+                frob = float((got - want).norm() / want.norm())
+                ok = frob <= ZOO_CPU_BF16_FROB
+                what = (f"logits relative Frobenius {frob:.3e} (tol "
+                        f"{ZOO_CPU_BF16_FROB})")
+            must = " (must be 1)" if dtype == "float32" else ""
+            print(f"  {c.name} reduced {dtype}: card vs CPU {what}; greedy "
+                  f"tokens equal {same:.3f}{must} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{c.name} {dtype}: card and CPU "
+                                     "disagree")
+
+
+def zoo_path(chk: Check):
+    """Phase 8; returns (kernel timing per dtype, launches of the main
+    path: the two prefills)."""
+    import torch
+    t0 = time.perf_counter()
+    check_zoo_kernels(chk)
+    torch.cuda.synchronize()
+    timing = time_zoo_kernels()
+    llama_cfg, rwkv_cfg = zoo_configs()
+    model, params, fa_launch, llama_ms = zoo_prefill(llama_cfg,
+                                                     "llama3.2-1b")
+    if fa_launch != {"flash_attention_bh": llama_cfg.num_layers,
+                     "wkv6_bh": 0}:
+        raise AssertionError(f"llama prefill launches {fa_launch}: expected "
+                             f"one flash attention per layer")
+    zoo_kernel_vs_cache(model, params, "llama3.2-1b")
+    del model, params
+    torch.cuda.empty_cache()
+    r_model, r_params, wk_launch, rwkv_ms = zoo_prefill(
+        rwkv_cfg, f"rwkv6-7b ({RWKV_LAYERS} of 32 layers)")
+    if wk_launch != {"flash_attention_bh": 0,
+                     "wkv6_bh": rwkv_cfg.num_layers}:
+        raise AssertionError(f"rwkv6 prefill launches {wk_launch}: expected "
+                             f"one wkv6 per layer")
+    zoo_kernel_vs_cache(r_model, r_params, "rwkv6-7b")
+    serving = zoo_serving(r_model, r_params)
+    del r_model, r_params
+    torch.cuda.empty_cache()
+    zoo_card_vs_cpu()
+    launches = {"flash_attention_bh": fa_launch["flash_attention_bh"],
+                "wkv6_bh": wk_launch["wkv6_bh"]}
+    print(f"  zoo phase wall time {time.perf_counter() - t0:.1f} s; prefill "
+          f"llama3.2-1b {llama_ms:.1f} ms, rwkv6-7b ({RWKV_LAYERS} layers) "
+          f"{rwkv_ms:.1f} ms; serving {serving}")
+    return timing, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1187,6 +1610,12 @@ def main() -> int:
     print("== phase 7: card vs CPU")
     card_vs_cpu()
 
+    print("== phase 8: zoo path (Llama-3.2-1B, RWKV6-7B cut to "
+          f"{RWKV_LAYERS} layers: prefill, cache path, serving)")
+    zoo_timing, zoo_launches = zoo_path(chk)
+    timing.update(zoo_timing["bf16"])
+    launches.update(zoo_launches)
+
     rows = []
     for n in REPLACES:
         t = timing[n]
@@ -1195,6 +1624,13 @@ def main() -> int:
                "max_abs_err": chk.err[n], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
+        if n in ZOO:
+            tf = zoo_timing["f32"][n]
+            row.update(dtype="bfloat16 (r/k/v; w f32)" if n == "wkv6_bh"
+                       else "bfloat16", f32_ms=tf["ms"],
+                       f32_plain_ms=tf["plain_ms"],
+                       f32_bound_ms=tf["bound_ms"],
+                       f32_library_ms=tf["library_ms"])
         if n in timing_bf16:
             tb = timing_bf16[n]
             row.update(bf16_launches=launches_bf16[n], bf16_ms=tb["ms"],

@@ -1,0 +1,17 @@
+"""DeepSeek-67B [arXiv:2401.02954] — dense llama-arch.
+95L d_model=8192 64H (GQA kv=8) d_ff=22016 vocab=102400.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-67b",
+    family="dense",
+    citation="arXiv:2401.02954",
+    num_layers=95,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=22016,
+    vocab_size=102400,
+)

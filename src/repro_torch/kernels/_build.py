@@ -33,6 +33,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES: Dict[str, Path] = {
     "fused_cnn": _PKG / "fused_cnn" / "csrc" / "fused_cnn.cu",
     "delta_codec": _PKG / "delta_codec" / "csrc" / "delta_codec.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "wkv6": _PKG / "wkv6" / "csrc" / "wkv6.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,162 @@
+"""GQA attention: full-sequence (train/prefill) and single-token decode
+(``repro/models/attention.py``).
+
+Supports grouped KV heads, optional QKV bias (qwen2), causal or
+bidirectional masking, sliding-window masking (dense long-context
+variant), RoPE/M-RoPE applied at write time (the KV cache stores rotated
+keys), and a ring-buffer cache for windowed decode.
+
+Full-sequence attention always goes through the flash-attention wrapper
+(``repro_torch.kernels.flash_attention``): ``impl="xla"`` and
+``impl="flash"`` both name it.  On a CUDA tensor it launches the CUDA
+kernel, on a CPU tensor it runs the kernel's plain twin.  The reference's
+einsum paths (``_sdpa_chunked``, and ``_sdpa`` in ``attend_full``) are
+never taken.  Decode attends one query over the ring-buffer cache with
+``_sdpa`` in plain torch, as the reference does: that computation lies
+outside any kernel there, and its mask is not the kernel's end-aligned
+causal mask.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import module as m
+from repro_torch.models.rope import apply_rope, rope_angles
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+IMPLS = ("xla", "flash")       # both name the flash-attention kernel path
+
+
+def init_attention(gen, cfg: ModelConfig, device=None):
+    pdt = m.dtype_of(cfg.param_dtype)
+    p = {
+        "wq": m.dense_init(gen, cfg.d_model, cfg.q_dim, device, dtype=pdt),
+        "wk": m.dense_init(gen, cfg.d_model, cfg.kv_dim, device, dtype=pdt),
+        "wv": m.dense_init(gen, cfg.d_model, cfg.kv_dim, device, dtype=pdt),
+        "wo": m.dense_init(gen, cfg.q_dim, cfg.d_model, device, dtype=pdt),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = m.zeros((cfg.q_dim,), device, pdt)
+        p["bk"] = m.zeros((cfg.kv_dim,), device, pdt)
+        p["bv"] = m.zeros((cfg.kv_dim,), device, pdt)
+    return p
+
+
+def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor):
+    dt = x.dtype
+    B, S, _ = x.shape
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if "bq" in params:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+    """Grouped scaled-dot-product attention in plain torch.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D); mask: broadcastable to
+    (B, KV, G, Sq, Sk) with True = attend.
+    """
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(torch.float32)
+    scores = scores * (D ** -0.5)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(B, Sq, H * D)
+
+
+def full_mask(cfg: ModelConfig, seq: int, device=None) -> torch.Tensor:
+    """(1, 1, 1, S, S) boolean mask for full-sequence attention."""
+    qpos = torch.arange(seq, device=device)[:, None]
+    kpos = torch.arange(seq, device=device)[None, :]
+    mask = torch.ones((seq, seq), dtype=torch.bool, device=device)
+    if cfg.causal:
+        mask &= kpos <= qpos
+    if cfg.sliding_window:
+        mask &= (qpos - kpos) < cfg.sliding_window
+    return mask[None, None, None]
+
+
+def attend_full(params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, impl: str = "xla") -> torch.Tensor:
+    """Full-sequence attention for train/prefill through the flash-attention
+    kernel.  x: (B, S, d)."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention impl must be one of {IMPLS}, got "
+                         f"{impl!r}")
+    q, k, v = _project_qkv(params, cfg, x)
+    angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                         cfg.mrope_sections)
+    q = apply_rope(q, angles)
+    k = apply_rope(k, angles)
+    out = fa_ops.flash_attention(q, k, v, causal=cfg.causal,
+                                 window=cfg.sliding_window or 0)
+    out = out.reshape(*x.shape[:2], cfg.q_dim)
+    return out @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode with KV cache
+# ---------------------------------------------------------------------------
+
+def cache_len(cfg: ModelConfig, context_len: int) -> int:
+    """Physical cache length: window ring buffer if windowed, else context."""
+    if cfg.sliding_window and cfg.sliding_window < context_len:
+        return cfg.sliding_window
+    return context_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, context_len: int, dtype,
+               device=None) -> Dict[str, torch.Tensor]:
+    C = cache_len(cfg, context_len)
+    shape = (batch, C, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attend_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor], position: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode.  x: (B, 1, d); position: (B,) absolute positions of
+    the new token; cache stores rotated keys.  Returns (out (B,1,d), cache')."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(params, cfg, x)                    # S == 1
+    pos = position[:, None]                                   # (B, 1)
+    if cfg.mrope_sections:
+        pos = pos[:, None].expand(B, 3, 1)
+    angles = rope_angles(pos, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
+    q = apply_rope(q, angles)
+    k = apply_rope(k, angles)
+
+    C = cache["k"].shape[1]
+    slot = (position % C).long()                              # ring index (B,)
+    onehot = torch.nn.functional.one_hot(slot, C).to(cache["k"].dtype)
+    keep = (1 - onehot)[:, :, None, None]
+    put = onehot[:, :, None, None]
+    new_k = cache["k"] * keep + put * k
+    new_v = cache["v"] * keep + put * v
+
+    # validity: entries written so far; windowed cache recycles all slots
+    idx = torch.arange(C, device=x.device)[None, :]           # (1, C)
+    n_valid = torch.clamp(position + 1, max=C)[:, None]       # (B, 1)
+    valid = idx < n_valid                                     # (B, C)
+    mask = valid[:, None, None, None, :]                      # (B,1,1,1,C)
+    out = _sdpa(cfg, q, new_k, new_v, mask)
+    out = out @ params["wo"].to(x.dtype)
+    return out, {"k": new_k, "v": new_v}

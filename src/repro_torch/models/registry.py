@@ -1,0 +1,65 @@
+"""Model registry: resolve an arch id to a uniform model API
+(``repro/models/registry.py``).
+
+``build_model(cfg, device=None)`` binds a config to a device (``None``:
+the CUDA card, which raises without one; ``"cpu"`` runs the kernels'
+twins).  ``Model.init(gen)`` draws params from a ``torch.Generator`` on
+the generator's device and places them on the model's.  The families moe,
+hybrid, vlm and audio are not ported yet and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import module as m
+from repro_torch.models import transformer as tf
+
+
+@dataclass(frozen=True)
+class Model:
+    """Uniform handle: init/apply callables bound to one config and device."""
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable[[torch.Generator], Dict[str, Any]]
+    forward: Callable[..., Any]            # (params, inputs, opts) -> (logits, aux)
+    decode: Optional[Callable[..., Any]]   # (params, token, state, position, opts)
+    init_decode_state: Optional[Callable[..., Any]]
+
+    def param_count(self, params) -> int:
+        return m.param_count(params)
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    dev = resolve_device(device)
+    if cfg.family == "cnn":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda gen: cnn_mod.init_cnn(gen.initial_seed(), dev,
+                                              cfg.vocab_size, cfg.d_model),
+            forward=lambda p, inputs, opts=None: (
+                cnn_mod.forward(p, inputs["images"]), 0.0),
+            decode=None,
+            init_decode_state=None,
+        )
+    tf.check_family(cfg)
+    has_decode = not cfg.is_encoder_only
+    return Model(
+        cfg=cfg, device=dev,
+        init=lambda gen: tf.init_model(gen, cfg, dev),
+        forward=lambda p, inputs, opts=None: tf.forward_full(p, cfg, inputs,
+                                                             opts),
+        decode=(lambda p, token, state, position, opts=None:
+                tf.decode_step(p, cfg, token, state, position, opts)
+                ) if has_decode else None,
+        init_decode_state=(lambda batch, context_len, dtype:
+                           tf.init_decode_state(cfg, batch, context_len,
+                                                dtype, dev)
+                           ) if has_decode else None,
+    )
+

@@ -1,5 +1,5 @@
-"""The CUDA kernels (fused CNN, delta codec) against their plain twins on
-the card, and the port's import hygiene.
+"""The CUDA kernels (fused CNN, delta codec, flash attention, WKV6) against
+their plain twins on the card, and the port's import hygiene.
 
 The kernel tests need an NVIDIA card (marker ``cuda``): they skip, with a
 reason, where ``torch.cuda.is_available()`` is False; on the card run them
@@ -17,6 +17,12 @@ codec kernels are held to their twins bitwise (q, scales and the
 dequantized values) at the fused round's M = 256·10 rows and one tree's
 217, blocks 128 and 512, int8 and int4, with all-zero rows and lanes on
 exact .5 quanta.
+
+The zoo's kernels are held to their twins at Llama-3.2-1B's and
+RWKV6-7B's prefill shapes, on masks, ragged lengths and Sq < Sk, within
+1e-5 of the largest magnitude at f32 and one bf16 ulp (2**-7) at bf16; a
+reduced prefill must launch one kernel per layer, and the card's forward
+must match the CPU twins (logits, and greedy tokens at f32).
 
 The hygiene tests run everywhere: the port imports neither JAX, nor the
 JAX package, nor ``msgpack`` (absent on the card's machine), and an entry
@@ -421,6 +427,139 @@ def test_codec_round_and_server_on_card_match_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the model zoo's kernels: flash attention and WKV6
+# ---------------------------------------------------------------------------
+
+# bf16 outputs: kernel and twin compute in f32 from the same bf16 inputs and
+# round once, so an element differs by at most one bf16 ulp, 2**-7 of the
+# largest magnitude
+ZOO_BF16_RTOL = 2 ** -7
+
+FLASH_CASES = [
+    # (B, H, KV, Sq, Sk, D, causal, window): Llama-3.2-1B's prefill shape,
+    # its window and non-causal variants, a ragged S (non-causal too: the
+    # causal mask hides the zero-filled tail keys from every real row),
+    # Sq < Sk, D=32 and 128
+    (2, 32, 8, 2048, 2048, 64, True, 0),
+    (2, 32, 8, 2048, 2048, 64, True, 256),
+    (2, 32, 8, 2048, 2048, 64, False, 0),
+    (2, 32, 8, 2000, 2000, 64, True, 0),
+    (2, 32, 8, 2000, 2000, 64, False, 0),
+    (1, 4, 2, 100, 300, 64, True, 0),
+    (2, 4, 2, 128, 128, 32, True, 20),
+    (1, 8, 1, 256, 256, 128, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"S{c[3]}x{c[4]}-D{c[5]}-c{int(c[6])}-w{c[7]}"
+                              for c in FLASH_CASES])
+def test_flash_attention_kernel_matches_twin(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import kernel as knl, ref
+    b, h, kv, sq, sk, d, causal, window = case
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(cuda).manual_seed(sq + d)
+    q = torch.randn(b * h, sq, d, device=cuda, generator=g).to(dt)
+    k = torch.randn(b * kv, sk, d, device=cuda, generator=g).to(dt)
+    v = torch.randn(b * kv, sk, d, device=cuda, generator=g).to(dt)
+    n0 = knl.LAUNCHES["flash_attention_bh"]
+    got = knl.flash_attention_bh(q, k, v, group_size=h // kv, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert knl.LAUNCHES["flash_attention_bh"] == n0 + 1
+    want = ref.flash_attention_bh_ref(q, k, v, h // kv, causal, window)
+    assert got.dtype == dt
+    _within(got.float(), want.float(),
+            RTOL if dtype == "f32" else ZOO_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("bh,s,d", [(128, 2048, 64), (16, 77, 32)],
+                         ids=["rwkv6-7b", "ragged-D32"])
+def test_wkv6_kernel_matches_twin(cuda, bh, s, d, dtype):
+    """r, k, v in the compute dtype, w and u in f32, as the model feeds
+    them; y and the final state."""
+    from repro_torch.kernels.wkv6 import kernel as knl, ref
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(cuda).manual_seed(s + d)
+    r, k, v = (torch.randn(bh, s, d, device=cuda, generator=g).mul(0.5)
+               .to(dt) for _ in range(3))
+    w = torch.rand(bh, s, d, device=cuda, generator=g) * 0.4 + 0.55
+    u = torch.randn(bh, d, device=cuda, generator=g) * 0.1
+    y, sf = knl.wkv6_bh(r, k, v, w, u)
+    torch.cuda.synchronize()
+    yr, sr = ref.wkv6_bh_ref(r, k, v, w, u)
+    assert y.dtype == dt and sf.dtype == torch.float32
+    _within(y.float(), yr.float(), RTOL if dtype == "f32" else ZOO_BF16_RTOL)
+    _within(sf, sr, RTOL)
+    with pytest.raises(TypeError, match="float32"):
+        knl.wkv6_bh(r, k, v, w.to(torch.bfloat16), u)
+
+
+def _zoo_model(name, dtype, device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    if name == "rwkv6":
+        cfg = get_config("rwkv6-7b").reduced()
+    else:
+        cfg = get_config("llama3.2-1b").reduced().replace(num_kv_heads=2)
+    return build_model(cfg.replace(dtype=dtype), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama", "rwkv6"])
+def test_prefill_launches_one_kernel_per_layer(cuda, name):
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.training.step import make_prefill_step
+    model = _zoo_model(name, "bfloat16", cuda)
+    params = model.init(torch.Generator(cuda).manual_seed(0))
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 256), device=cuda)
+    fa.reset_launches()
+    wk.reset_launches()
+    logits = make_prefill_step(model)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits.float()).all())
+    layers = model.cfg.num_layers
+    assert fa.LAUNCHES["flash_attention_bh"] == (0 if name == "rwkv6"
+                                                 else layers)
+    assert wk.LAUNCHES["wkv6_bh"] == (layers if name == "rwkv6" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["llama", "rwkv6"])
+def test_zoo_forward_on_card_matches_cpu(cuda, name, dtype):
+    """The card's kernel path against the CPU twins at reduced size, from
+    one set of params: logits (f32 within 1e-4 of the largest magnitude,
+    bf16 within 3% relative Frobenius, the CPU tests' bounds against JAX)
+    and, at f32, the greedy tokens."""
+    from repro_torch.serving import generate
+    from repro_torch.utils.tree import tree_map
+    m_cpu = _zoo_model(name, dtype, "cpu")
+    m_gpu = _zoo_model(name, dtype, cuda)
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    tokens = torch.randint(0, m_cpu.cfg.vocab_size, (2, 128),
+                           generator=torch.Generator().manual_seed(1))
+    want, _ = m_cpu.forward(p_cpu, {"tokens": tokens})
+    got, _ = m_gpu.forward(p_gpu, {"tokens": tokens.to(cuda)})
+    got, want = got.float().cpu(), want.float()
+    if dtype == "float32":
+        _within(got, want, 1e-4)
+        prompt = tokens[:, :12]
+        t_cpu = generate(m_cpu, p_cpu, prompt, max_new=8, context_len=20)
+        t_gpu = generate(m_gpu, p_gpu, prompt.to(cuda), max_new=8,
+                         context_len=20)
+        assert torch.equal(t_gpu.cpu(), t_cpu)
+    else:
+        assert float((got - want).norm() / want.norm()) <= 0.03
+
+
+# ---------------------------------------------------------------------------
 # import hygiene: runs everywhere
 # ---------------------------------------------------------------------------
 
@@ -446,7 +585,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, "\n".join(bad)
     walked = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
               for p in _port_files()[:-1]}
-    assert {"checkpoint", "core", "kernels", "launch", "serving"} <= walked
+    assert {"checkpoint", "configs", "core", "kernels", "launch", "models",
+            "serving", "training"} <= walked
     assert len(_port_files()) > 30
 
 
@@ -456,7 +596,16 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.fused_cnn.ops, "
             "repro_torch.core.fused_round, repro_torch.models.cnn, "
             "repro_torch.kernels.delta_codec.kernel, "
-            "repro_torch.serving.fl_server, repro_torch.launch.serve_fl\n"
+            "repro_torch.serving.fl_server, repro_torch.launch.serve_fl, "
+            "repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.attention, repro_torch.models.layers, "
+            "repro_torch.models.rope, repro_torch.models.rwkv6, "
+            "repro_torch.models.transformer, "
+            "repro_torch.kernels.flash_attention.kernel, "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.kernels.wkv6.kernel, repro_torch.kernels.wkv6.ops, "
+            "repro_torch.serving.decode, repro_torch.training.step, "
+            "repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
             "assert not bad, bad\n"
@@ -490,8 +639,17 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         FLServer(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_fl.main(["--rounds", "1", "--quiet"])
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    zoo = get_config("llama3.2-1b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(zoo)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced", "--max-new", "2", "--prompt-len", "2"])
     assert resolve_device("cpu") == torch.device("cpu")
     assert HSFLSimulation(cfg, device="cpu").device.type == "cpu"
+    assert build_model(zoo, "cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
@@ -508,7 +666,9 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch,
                                                         tmp_path):
     from repro_torch.kernels import _build
-    for name in ("fused_cnn", "delta_codec"):
+    assert set(_build.SOURCES) == {"fused_cnn", "delta_codec",
+                                   "flash_attention", "wkv6"}
+    for name in _build.SOURCES:
         path = _build.library_path(name)
         assert path.parent == ROOT / "build" / "kernels"
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
