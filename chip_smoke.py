@@ -9,6 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    card (kernels and plain twins alike) runs in full f32;
 2. build: the fused-CNN, delta-codec, flash-attention and WKV6 kernels
    from the sources in this checkout, one nvcc each, in parallel (sm_90a);
+   the seconds it took, and each kernel's registers and spills;
 3. kernels vs their plain PyTorch twins on the card.  Blocked fused CNN:
    the main path's shapes (K=10 users, batch 10, both conv layers) at f32
    and bf16, an odd cohort (K=3, B=7), the eval shape (K=1, B=1000) and an
@@ -21,7 +22,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    masks differ are printed.  Each kernel's device time (torch.profiler)
    is printed beside its twin's, its bound, the one PyTorch call that
    computes the same function where there is one, and the wall time of
-   back-to-back calls (CUDA events);
+   back-to-back calls (CUDA events); the fc backward's time is also split
+   by ``__global__`` function;
 4. the fused path: ``HSFLSimulation`` at the paper's configuration, 5
    rounds of opt (b=2) with and without the delta codec and 2 rounds of
    every other registered scheme; every kernel's launch count must equal
@@ -46,7 +48,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    Llama-3.2-1B's and RWKV6-7B's prefill shapes (B=2, S=2048; masks,
    ragged S, Sq < Sk; bf16 and f32), each timed beside its twin, its
    bound and, for attention, ``scaled_dot_product_attention`` (a
-   yardstick only); (b) ``make_prefill_step`` on Llama-3.2-1B as
+   yardstick only), with both attentions' TFLOP/s; (b) ``make_prefill_step`` on Llama-3.2-1B as
    configured and on RWKV6-7B at full width with 4 of its 32 layers, B=2
    x 2048-token prompts, counts reset just before: one kernel launch per
    layer; (c) the kernel path against the cache path (the token loop of
@@ -140,9 +142,9 @@ SOURCES = {**{n: "src/repro_torch/kernels/fused_cnn/csrc/fused_cnn.cu"
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 # __global__ launches per wrapper call
 LAUNCHES_PER_CALL = {"conv_pool_fwd_k": 1, "conv_pool_bwd_k": 2,
-                     "fc_chain_fwd_k": 1, "fc_chain_bwd_k": 2,
+                     "fc_chain_fwd_k": 1, "fc_chain_bwd_k": 1,
                      "conv_pool_fwd": 1, "conv_pool_bwd": 2,
-                     "fc_chain_fwd": 1, "fc_chain_bwd": 2}
+                     "fc_chain_fwd": 1, "fc_chain_bwd": 1}
 
 
 def sync() -> None:
@@ -157,6 +159,48 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+def _kernel_name(mangled: str) -> str:
+    """``ns::name<args>`` of a mangled ``_ZN...`` entry, as
+    ``name<args>`` with the template argument codes spelled out (``f``
+    float, ``13__nv_bfloat16`` bf16, ``Li64E`` 64)."""
+    import re
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, parts = 3, []
+    while i < len(mangled) and mangled[i].isdigit():
+        n = re.match(r"\d+", mangled[i:]).group(0)
+        i += len(n)
+        parts.append(mangled[i:i + int(n)])
+        i += int(n)
+    args = ""
+    if mangled[i:i + 1] == "I":
+        codes = re.match(r"((?:Li\d+E|13__nv_bfloat16|f)+)E", mangled[i + 1:])
+        if codes:
+            names = [n or {"f": "float"}.get(c, "bf16") for n, c in
+                     re.findall(r"Li(\d+)E|(13__nv_bfloat16|f)",
+                                codes.group(1))]
+            args = f"<{', '.join(names)}>"
+    return (parts[-1] if parts else mangled) + args
+
+
+def ptxas_summary(log: str) -> list:
+    """(kernel, registers, spill line) for each entry function that
+    ``nvcc -Xptxas -v`` reports in a build log."""
+    import re
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = _kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            out.append((entry, int(re.search(r"Used (\d+) registers",
+                                             line).group(1)), spill))
+            entry = None
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -204,10 +248,24 @@ def print_top_kernels(prof, top: int) -> None:
               f"{ev.key[:70]}")
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device time (ms) per call of ``fn``: the summed durations of
-    the kernels it launches, from torch.profiler, over ``iters`` calls
-    after a warm-up call.  Host-side launch gaps are not counted."""
+def short_name(kernel: str) -> str:
+    """A profiler's kernel name without its return type, namespace and
+    parameter list."""
+    return kernel.replace("(anonymous namespace)::", "").removeprefix(
+        "void ").split("(")[0]
+
+
+def device_split(fn, iters: int) -> dict:
+    """Mean device time (ms) per call of ``fn`` for each kernel it
+    launches, by name, from torch.profiler, over ``iters`` calls after a
+    warm-up call.  Host-side launch gaps are not counted.
+
+    Late in a long process the profiler loses a few kernel records of a
+    session (2 or 3 of 10 to 20 launches of one kernel in the zoo phase,
+    on the H100), so the summed time over ``iters`` reads low.  Each kernel is therefore timed
+    as its mean over the records there are, times its launches per call:
+    the record count over ``iters``, rounded (exact while fewer than
+    ``iters / 2`` records of it are lost)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -217,10 +275,24 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = _device_us(prof)
-    if not us > 0:
+    split, lost = {}, 0
+    for ev in _device_events(prof):
+        if ev.count:
+            per_call = max(1, round(ev.count / iters))
+            lost += per_call * iters - ev.count
+            split[ev.key] = _self_device_us(ev) / ev.count * per_call / 1e3
+    if lost > 0:
+        print(f"    (the profiler lost {lost} kernel records of {iters} "
+              f"calls; timed from the records it kept)")
+    if not sum(split.values()) > 0:
         raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / iters
+    return split
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time (ms) per call of ``fn``: the summed durations of
+    the kernels it launches (``device_split``)."""
+    return sum(device_split(fn, iters).values())
 
 
 def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
@@ -569,7 +641,13 @@ def time_kernels(k: int = 10, bs: int = 10, seed: int = 0,
     out = {}
     for name, fn in fns.items():
         iters = 10 if user else 50
-        ms = device_ms(lambda: fn(knl), iters=iters)
+        split = device_split(lambda: fn(knl), iters=iters)
+        ms = sum(split.values())
+        if name == "fc_chain_bwd":
+            for fn_name, f_ms in split.items():
+                print(f"  {name + sfx:16s} {'bf16' if bf16 else 'f32 '} per "
+                      f"step, __global__ {short_name(fn_name)}: "
+                      f"{f_ms * 1e3:8.2f} us")
         plain = device_ms(lambda: fn(ref), iters=2 if user else 10)
         wall = cuda_ms(lambda: fn(knl), iters=4 * iters)
         b_ms, by = bound_ms(*work[name])
@@ -1290,7 +1368,9 @@ def time_zoo_kernels() -> dict:
               f"D={d} causal: kernel {ms * 1e3:9.2f} us  twin "
               f"{plain * 1e3:9.2f} us  SDPA {lib * 1e3:8.2f} us  bound "
               f"{b_ms * 1e3:6.2f} us ({by}, {nbytes(q, k, v, o) / 1e6:.1f} "
-              f"MB, {flops / 1e9:.1f} GFLOP)")
+              f"MB, {flops / 1e9:.1f} GFLOP); achieved: kernel "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, SDPA "
+              f"{flops / lib / 1e9:.1f} TFLOP/s")
         r, kk, vv, w, u = wkv_inputs(ZOO_B * 64, ZOO_S, 64, dt, seed=8)
         y, sf = wk.wkv6_bh(r, kk, vv, w, u)
         # f32 ops, FMA = 2, per head and step: y_j = sum_i r_i S_ij (an
@@ -1559,14 +1639,14 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.find_nvcc()}, one process per source)")
+          f"(nvcc {_build.find_nvcc()}, one process per source); seconds "
+          f"per library: "
+          + ", ".join(f"{n} {sec:.1f}" for n, sec in built.items()))
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log")
         if log.is_file():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line or \
-                        "Compiling entry" in line:
-                    print(f"  ptxas {line.strip()}")
+            for entry, regs, spill in ptxas_summary(log.read_text()):
+                print(f"  ptxas {name}: {entry}: {regs} registers, {spill}")
 
     print("== phase 3: kernels vs plain twins on the card")
     chk = Check()

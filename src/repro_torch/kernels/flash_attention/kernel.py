@@ -11,9 +11,12 @@ On CPU tensors the wrapper runs the plain twin of ``ref.py``; on CUDA
 tensors it checks dtype, shape, contiguity and alignment, allocates the
 output with ``torch.empty``, launches on the current stream and raises on
 a launch error.  There is no fallback from the card to the twin.  The
-reference's TPU tile sizes (``block_q``, ``block_k``) have no counterpart:
-the CUDA kernel tiles by 64 rows and masks a ragged tail itself, so any
-``S >= 1`` works (the reference asserts ``S % block == 0``).
+dtype picks the CUDA kernel: bf16 runs on the tensor cores (TMA loads,
+``wgmma`` products, 128-row q tiles, p rounded to bf16 before p·v), f32
+on the CUDA cores (64-row tiles, all in f32).  The reference's TPU tile
+sizes (``block_q``, ``block_k``) have no counterpart: both kernels mask a
+ragged tail themselves, so any ``S >= 1`` works (the reference asserts
+``S % block == 0``).
 
 ``LAUNCHES`` counts the kernel launches.
 """

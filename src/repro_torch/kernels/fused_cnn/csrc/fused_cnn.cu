@@ -9,8 +9,7 @@
 //   conv_pool_bwd_k  (pallas_call at kernel.py:357) -> conv_bwd_partial_kernel
 //                                                    + conv_bwd_finish_kernel
 //   fc_chain_fwd_k   (pallas_call at kernel.py:398) -> fc_fwd_kernel
-//   fc_chain_bwd_k   (pallas_call at kernel.py:441) -> fc_bwd_act_kernel
-//                                                    + fc_bwd_grad_kernel
+//   fc_chain_bwd_k   (pallas_call at kernel.py:441) -> fc_bwd_kernel
 //   conv_pool_fwd    (pallas_call at kernel.py:117) \
 //   conv_pool_bwd    (pallas_call at kernel.py:159)  | the same kernels at
 //   fc_chain_fwd     (pallas_call at kernel.py:188)  | K = 1, through the
@@ -26,8 +25,9 @@
 // kernel is bounded by memory traffic (H100 SXM: 3.35 TB/s; a few
 // microseconds each), far from the 67 TFLOP/s f32 peak.  In practice a
 // launch of a few microseconds is dominated by launch latency, and the
-// round by the host loop around its 216 training launches (9 per SGD step;
-// 2160 through the single-user kernels at K=10).
+// round by the host loop around its 192 training launches (8 per SGD step;
+// 1920 through the single-user kernels at K=10).  The fc backward is one
+// launch that spreads a cohort over every SM (fc_bwd_kernel below).
 //
 // Design.  The TPU kernels walk a sequential grid over user tiles and keep
 // a whole user's layer in VMEM; here blocks run in parallel in no order, so
@@ -65,6 +65,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #define API extern "C" __attribute__((visibility("default")))
 
@@ -365,138 +367,255 @@ fc_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 }
 
 // ---------------------------------------------------------------------------
-// fc_chain_bwd, pass 1: dh2 = (g W3^T) * (h2 > 0), dh1 = (dh2 W2^T) * (h1 > 0)
-// per row tile; dh2 stays in shared memory for the second product.
-// grid = (ceil(B / kFcRows), K).
+// fc_chain_bwd, one launch.  grid = (nt + 1, K), 256 threads.  Every block
+// first copies its user's W3, W2 and g into shared memory (cp.async, all
+// in flight at once, rows padded so that the 4-wide reads of neighbouring
+// lanes hit neighbouring banks) and recomputes dh2 = (g W3^T) * (h2 > 0)
+// and dh1 = (dh2 W2^T) * (h1 > 0) there: ~90k FMAs, cheaper than a second
+// launch.  Then block x < nt owns a slice of ft columns f of F: dW1[f, :] =
+// sum_b x[b, f] dh1[b, :] (a thread per column j, the contiguous axis of
+// dW1) and dx[:, f] = dh1 W1[f, :]^T (the slice's W1 rows copied in, a
+// thread per f); block nt owns dW2, dW3 and db1..3.  Every sum runs over
+// its index in ascending order, as the two-launch version of this kernel
+// did, so the tiling (nt, ft) changes no bit and the result is the same
+// on every run.
 // ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// elements of T in one 4-byte word
 template <typename T>
-__global__ void __launch_bounds__(kFcThreads)
-fc_bwd_act_kernel(const T* __restrict__ g, const T* __restrict__ h1,
-                  const T* __restrict__ h2, const T* __restrict__ w2,
-                  const T* __restrict__ w3, T* __restrict__ dh1,
-                  T* __restrict__ dh2, int B, int D1, int D2, int D3) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k = blockIdx.y, r0 = blockIdx.x * kFcRows;
-  const int rows = min(kFcRows, B - r0);
-  T* gs = reinterpret_cast<T*>(smem_raw);  // (kFcRows, D3)
-  T* d2s = gs + kFcRows * D3;              // (kFcRows, D2)
-  const size_t row = (size_t)k * B + r0;
-  for (int i = threadIdx.x; i < kFcRows * D3; i += blockDim.x)
-    gs[i] = i < rows * D3 ? g[row * D3 + i] : to<T>(0.f);
-  __syncthreads();
-  const T* w3k = w3 + (size_t)k * D2 * D3;
-  for (int j = threadIdx.x; j < D2; j += blockDim.x) {
-    for (int r = 0; r < kFcRows; ++r) {
-      float acc = 0.f;
-      for (int c = 0; c < D3; ++c)
-        acc = fmaf(f(gs[r * D3 + c]), f(w3k[(size_t)j * D3 + c]), acc);
-      const bool live = r < rows && f(h2[(row + r) * D2 + j]) > 0.f;
-      const T v = to<T>(__fmul_rn(rnd<T>(acc), live ? 1.f : 0.f));
-      d2s[r * D2 + j] = v;
-      if (r < rows) dh2[(row + r) * D2 + j] = v;
+constexpr int kWord = 4 / (int)sizeof(T);
+
+// staged rows are padded by 4 elements: 4-wide reads of neighbouring rows
+// (16 bytes at f32, 8 at bf16) then hit neighbouring banks
+constexpr int kPad = 4;
+
+// start copying rows x cols of src (row stride sld) into dst (row stride
+// ld), 4 bytes per cp.async, a thread per word column; cols, sld and the
+// offsets are whole words
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, int ld, const T* src, int sld,
+                                      int rows, int cols) {
+  const int cw = cols / kWord<T>;
+  const int per = kThreads / cw;
+  if ((int)threadIdx.x >= per * cw) return;
+  const int c = (threadIdx.x % cw) * kWord<T>;
+  for (int r = threadIdx.x / cw; r < rows; r += per)
+    cp_async4(dst + r * ld + c, src + (size_t)r * sld + c);
+}
+
+// four consecutive elements of a staged row, widened to f32 (16-byte
+// aligned at f32, 8-byte at bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(p2[0]);
+  const float2 b = __bfloat1622float2(p2[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// acc[u] += sum_i a[u][i] w[i] for i < I in ascending order, U rows of a
+// (row offsets ra[u]) against one row w, 4 elements a read when I % 4 == 0
+template <int U, typename T>
+__device__ __forceinline__ void dot_rows(float (&acc)[U], const T* a,
+                                         const int (&ra)[U], const T* w,
+                                         int I) {
+  if (I % 4 == 0) {
+    for (int i = 0; i < I; i += 4) {
+      const float4 wv = load4(w + i);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float4 av = load4(a + ra[u] + i);
+        acc[u] = fmaf(av.x, wv.x, acc[u]);
+        acc[u] = fmaf(av.y, wv.y, acc[u]);
+        acc[u] = fmaf(av.z, wv.z, acc[u]);
+        acc[u] = fmaf(av.w, wv.w, acc[u]);
+      }
     }
-  }
-  __syncthreads();
-  const T* w2k = w2 + (size_t)k * D1 * D2;
-  for (int j = threadIdx.x; j < D1; j += blockDim.x) {
-    for (int r = 0; r < rows; ++r) {
-      float acc = 0.f;
-      for (int i = 0; i < D2; ++i)
-        acc = fmaf(f(d2s[r * D2 + i]), f(w2k[(size_t)j * D2 + i]), acc);
-      const bool live = f(h1[(row + r) * D1 + j]) > 0.f;
-      dh1[(row + r) * D1 + j] = to<T>(__fmul_rn(rnd<T>(acc), live ? 1.f : 0.f));
+  } else {
+    for (int i = 0; i < I; ++i) {
+      const float wv = f(w[i]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc[u] = fmaf(f(a[ra[u] + i]), wv, acc[u]);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// fc_chain_bwd, pass 2: every product that reduces over the batch (dW1,
-// dW2, dW3, db1..3, all f32) or over D1 (dx = dh1 W1^T, in T), one thread
-// per output element, each sum sequential in a fixed order.  The flat
-// index space is the concatenation [dW1 | dx | dW2 | dW3 | db1 | db2 | db3].
-// ---------------------------------------------------------------------------
+// out[b, j] = T(T(sum_i a[b, i] w[j, i]) * (h[b, j] > 0)) for b < B, j < N:
+// a (B x I), w (N rows at stride lw) and h (B x N) in shared memory.  A
+// thread owns column j and rows bq, bq + per, ... (per = threads per
+// column), U sums in flight.
+template <int U, typename T>
+__device__ __forceinline__ void masked_product(const T* a, int I, const T* w,
+                                               int lw, int N, const T* h,
+                                               T* out, int B) {
+  const int per = kThreads / N;
+  if ((int)threadIdx.x >= per * N) return;
+  const int j = threadIdx.x % N;
+  for (int b0 = threadIdx.x / N; b0 < B; b0 += per * U) {
+    float acc[U];
+    int ra[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      acc[u] = 0.f;
+      ra[u] = min(b0 + u * per, B - 1) * I;
+    }
+    dot_rows<U>(acc, a, ra, w + j * lw, I);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int b = b0 + u * per;
+      if (b >= B) break;
+      const bool live = f(h[b * N + j]) > 0.f;
+      out[b * N + j] = to<T>(__fmul_rn(rnd<T>(acc[u]), live ? 1.f : 0.f));
+    }
+  }
+}
+
+// out[r, c] = sum_b a[b * lda + r] bm[b * ldb + c] (f32) for r < R, c < C,
+// out rows at stride C.  A thread owns column c and rows rq, rq + per, ...
+template <int U, typename T>
+__device__ __forceinline__ void batch_outer(const T* a, int lda, int R,
+                                            const T* bm, int ldb, int C,
+                                            int B, float* __restrict__ out) {
+  const int per = kThreads / C;
+  if ((int)threadIdx.x >= per * C) return;
+  const int c = threadIdx.x % C;
+  for (int r0 = threadIdx.x / C; r0 < R; r0 += per * U) {
+    float acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = 0.f;
+    for (int b = 0; b < B; ++b) {
+      const float bv = f(bm[b * ldb + c]);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        acc[u] = fmaf(f(a[b * lda + min(r0 + u * per, R - 1)]), bv, acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * per;
+      if (r >= R) break;
+      out[(size_t)r * C + c] = acc[u];
+    }
+  }
+}
+
+// the shared-memory regions of fc_bwd_kernel, in elements of T, each
+// start a whole number of 8 elements (16-byte aligned at either dtype)
+__host__ __device__ inline int up(int n) { return (n + 7) / 8 * 8; }
+
+struct FcBwdSmem {
+  int w3, w2, g, h1, h2, d2, d1, w1, xs, total;
+  __host__ __device__ FcBwdSmem(int B, int D1, int D2, int D3, int ft) {
+    w3 = 0;
+    w2 = w3 + up(D2 * (D3 + kPad));
+    g = w2 + up(D1 * (D2 + kPad));
+    h1 = g + up(B * D3);
+    h2 = h1 + up(B * D1);
+    d2 = h2 + up(B * D2);
+    d1 = d2 + up(B * D2);
+    w1 = d1 + up(B * D1);
+    xs = w1 + up(ft * (D1 + kPad));
+    total = xs + up(B * ft);
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fc_bwd_grad_kernel(const T* __restrict__ x, const T* __restrict__ h1,
-                   const T* __restrict__ h2, const T* __restrict__ g,
-                   const T* __restrict__ dh1, const T* __restrict__ dh2,
-                   const T* __restrict__ w1, float* __restrict__ dw1,
-                   float* __restrict__ db1, float* __restrict__ dw2,
-                   float* __restrict__ db2, float* __restrict__ dw3,
-                   float* __restrict__ db3, T* __restrict__ dx, int K,
-                   int B, int F, int D1, int D2, int D3) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n_w1 = (long long)K * F * D1, n_x = (long long)K * B * F;
-  const long long n_w2 = (long long)K * D1 * D2, n_w3 = (long long)K * D2 * D3;
-  if (t < n_w1) {  // dW1[k, f, j] = sum_b x[k,b,f] dh1[k,b,j]
-    const int j = (int)(t % D1);
-    const long long r = t / D1;
-    const int ff = (int)(r % F), k = (int)(r / F);
-    float acc = 0.f;
-    for (int b = 0; b < B; ++b) {
-      const size_t row = (size_t)k * B + b;
-      acc = fmaf(f(x[row * F + ff]), f(dh1[row * D1 + j]), acc);
+fc_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
+              const T* __restrict__ h1, const T* __restrict__ h2,
+              const T* __restrict__ w1, const T* __restrict__ w2,
+              const T* __restrict__ w3, float* __restrict__ dw1,
+              float* __restrict__ db1, float* __restrict__ dw2,
+              float* __restrict__ db2, float* __restrict__ dw3,
+              float* __restrict__ db3, T* __restrict__ dx, int B, int F,
+              int D1, int D2, int D3, int ft) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int k = blockIdx.y;
+  const bool grads = blockIdx.x == gridDim.x - 1;  // dW2, dW3, db
+  const int f0 = blockIdx.x * ft;
+  const int nf = grads ? 0 : min(ft, F - f0);
+  const int l1 = D1 + kPad, l2 = D2 + kPad, l3 = D3 + kPad;  // row strides
+  const FcBwdSmem at(B, D1, D2, D3, ft);
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T* w3s = base + at.w3;    // (D2, l3)
+  T* w2s = base + at.w2;    // (D1, l2)
+  T* gs = base + at.g;      // (B, D3)
+  T* h1s = base + at.h1;    // (B, D1)
+  T* h2s = base + at.h2;    // (B, D2)
+  T* d2s = base + at.d2;    // (B, D2)
+  T* d1s = base + at.d1;    // (B, D1)
+  T* w1s = base + at.w1;    // (ft, l1), a slice block
+  T* xs = base + at.xs;     // (B, ft), a slice block
+
+  const size_t row = (size_t)k * B;
+  stage(w3s, l3, w3 + (size_t)k * D2 * D3, D3, D2, D3);
+  stage(w2s, l2, w2 + (size_t)k * D1 * D2, D2, D1, D2);
+  stage(gs, D3, g + row * D3, D3, B, D3);
+  stage(h1s, D1, h1 + row * D1, D1, B, D1);
+  stage(h2s, D2, h2 + row * D2, D2, B, D2);
+  if (!grads) {
+    stage(w1s, l1, w1 + ((size_t)k * F + f0) * D1, D1, nf, D1);
+    stage(xs, ft, x + row * F + f0, F, B, nf);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  masked_product<4>(gs, D3, w3s, l3, D2, h2s, d2s, B);
+  __syncthreads();
+  masked_product<8>(d2s, D2, w2s, l2, D1, h1s, d1s, B);
+  __syncthreads();
+
+  if (grads) {
+    // dW2[i, j] = sum_b h1[b, i] dh2[b, j]; dW3[i, c] = sum_b h2[b, i] g[b, c]
+    batch_outer<8>(h1s, D1, D1, d2s, D2, D2, B, dw2 + (size_t)k * D1 * D2);
+    batch_outer<8>(h2s, D2, D2, gs, D3, D3, B, dw3 + (size_t)k * D2 * D3);
+    // bias grads: column sums over the batch, a thread per column
+    for (int t = threadIdx.x; t < D1 + D2 + D3; t += kThreads) {
+      const T* src = t < D1 ? d1s : t < D1 + D2 ? d2s : gs;
+      float* dst = t < D1 ? db1 + (size_t)k * D1
+                          : t < D1 + D2 ? db2 + (size_t)k * D2
+                                        : db3 + (size_t)k * D3;
+      const int D = t < D1 ? D1 : t < D1 + D2 ? D2 : D3;
+      const int j = t < D1 ? t : t < D1 + D2 ? t - D1 : t - D1 - D2;
+      float acc = 0.f;
+      for (int b = 0; b < B; ++b) acc = __fadd_rn(acc, f(src[b * D + j]));
+      dst[j] = acc;
     }
-    dw1[t] = acc;
     return;
   }
-  t -= n_w1;
-  if (t < n_x) {  // dx[k, b, f] = sum_j dh1[k,b,j] W1[k,f,j]
-    const int ff = (int)(t % F);
-    const size_t row = (size_t)(t / F);
-    const int k = (int)(row / B);
-    const T* wr = w1 + ((size_t)k * F + ff) * D1;
-    const T* dr = dh1 + row * D1;
-    float acc = 0.f;
-    for (int j = 0; j < D1; ++j) acc = fmaf(f(dr[j]), f(wr[j]), acc);
-    dx[t] = to<T>(acc);
-    return;
-  }
-  t -= n_x;
-  if (t < n_w2) {  // dW2[k, i, j] = sum_b h1[k,b,i] dh2[k,b,j]
-    const int j = (int)(t % D2);
-    const long long r = t / D2;
-    const int i = (int)(r % D1), k = (int)(r / D1);
-    float acc = 0.f;
-    for (int b = 0; b < B; ++b) {
-      const size_t row = (size_t)k * B + b;
-      acc = fmaf(f(h1[row * D1 + i]), f(dh2[row * D2 + j]), acc);
+
+  // dW1[f0 + r, j] = sum_b x[b, f0 + r] dh1[b, j]
+  batch_outer<8>(xs, ft, nf, d1s, D1, D1, B,
+                 dw1 + ((size_t)k * F + f0) * D1);
+  // dx[b, f0 + r] = T(sum_j dh1[b, j] W1[f0 + r, j]): a thread owns r and
+  // rows bq, bq + per, ...
+  constexpr int U = 4;
+  const int per = kThreads / ft;
+  const int r = threadIdx.x % ft;
+  if ((int)threadIdx.x >= per * ft || r >= nf) return;
+  for (int b0 = threadIdx.x / ft; b0 < B; b0 += per * U) {
+    float acc[U];
+    int ra[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      acc[u] = 0.f;
+      ra[u] = min(b0 + u * per, B - 1) * D1;
     }
-    dw2[t] = acc;
-    return;
-  }
-  t -= n_w2;
-  if (t < n_w3) {  // dW3[k, i, c] = sum_b h2[k,b,i] g[k,b,c]
-    const int c = (int)(t % D3);
-    const long long r = t / D3;
-    const int i = (int)(r % D2), k = (int)(r / D2);
-    float acc = 0.f;
-    for (int b = 0; b < B; ++b) {
-      const size_t row = (size_t)k * B + b;
-      acc = fmaf(f(h2[row * D2 + i]), f(g[row * D3 + c]), acc);
+    dot_rows<U>(acc, d1s, ra, w1s + r * l1, D1);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int b = b0 + u * per;
+      if (b >= B) break;
+      dx[(row + b) * F + f0 + r] = to<T>(acc[u]);
     }
-    dw3[t] = acc;
-    return;
   }
-  t -= n_w3;
-  // bias grads: column sums over the batch
-  const T* src;
-  float* dst;
-  int D;
-  if (t < (long long)K * D1) {
-    src = dh1; dst = db1; D = D1;
-  } else if ((t -= (long long)K * D1) < (long long)K * D2) {
-    src = dh2; dst = db2; D = D2;
-  } else if ((t -= (long long)K * D2) < (long long)K * D3) {
-    src = g; dst = db3; D = D3;
-  } else {
-    return;
-  }
-  const int j = (int)(t % D), k = (int)(t / D);
-  float acc = 0.f;
-  for (int b = 0; b < B; ++b)
-    acc = __fadd_rn(acc, f(src[((size_t)k * B + b) * D + j]));
-  dst[t] = acc;
 }
 
 inline unsigned blocks_for(long long n, int threads) {
@@ -564,33 +683,34 @@ int fc_fwd(const void* x, const void* w1, const void* b1, const void* w2,
 }
 
 template <typename T>
-int fc_bwd_act(const void* g, const void* h1, const void* h2, const void* w2,
-               const void* w3, void* dh1, void* dh2, int K, int B, int D1,
-               int D2, int D3, void* stream) {
-  const size_t smem = (size_t)kFcRows * (D3 + D2) * sizeof(T);
-  int rc = set_smem((const void*)fc_bwd_act_kernel<T>, smem);
+int fc_bwd(const void* x, const void* h1, const void* h2, const void* g,
+           const void* w1, const void* w2, const void* w3, float* dw1,
+           float* db1, float* dw2, float* db2, float* dw3, float* db3,
+           void* dx, int K, int B, int F, int D1, int D2, int D3,
+           void* stream) {
+  // every width at most a thread per column, and a whole number of words
+  if (D1 > kThreads || D2 > kThreads || D3 > kThreads || F % 2 || D1 % 2 ||
+      D2 % 2 || D3 % 2)
+    return (int)cudaErrorInvalidValue;
+  // at most one block per SM over the cohort where it fits (a second
+  // block on an SM doubles its time): slices of 16 to 256 columns, a whole
+  // number of 8 (4-byte words at either dtype)
+  int dev = 0, nsm = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  int nt = std::max(nsm / K - 1, (F + kThreads - 1) / kThreads);
+  nt = std::min(nt, std::max(1, (F + 15) / 16));
+  const int ft = std::min(kThreads, ((F + nt - 1) / nt + 7) / 8 * 8);
+  nt = (F + ft - 1) / ft;
+  const size_t smem = (size_t)FcBwdSmem(B, D1, D2, D3, ft).total * sizeof(T);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  int rc = set_smem((const void*)fc_bwd_kernel<T>, smem);
   if (rc) return rc;
-  dim3 grid(blocks_for(B, kFcRows), K);
-  fc_bwd_act_kernel<T><<<grid, kFcThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)g, (const T*)h1, (const T*)h2, (const T*)w2, (const T*)w3,
-      (T*)dh1, (T*)dh2, B, D1, D2, D3);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int fc_bwd_grad(const void* x, const void* h1, const void* h2, const void* g,
-                const void* dh1, const void* dh2, const void* w1, float* dw1,
-                float* db1, float* dw2, float* db2, float* dw3, float* db3,
-                void* dx, int K, int B, int F, int D1, int D2, int D3,
-                void* stream) {
-  const long long n = (long long)K * F * D1 + (long long)K * B * F +
-                      (long long)K * D1 * D2 + (long long)K * D2 * D3 +
-                      (long long)K * (D1 + D2 + D3);
-  fc_bwd_grad_kernel<T><<<blocks_for(n, kThreads), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)h1, (const T*)h2, (const T*)g, (const T*)dh1,
-      (const T*)dh2, (const T*)w1, dw1, db1, dw2, db2, dw3, db3, (T*)dx, K, B,
-      F, D1, D2, D3);
+  dim3 grid(nt + 1, K);
+  fc_bwd_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)g, (const T*)x, (const T*)h1, (const T*)h2, (const T*)w1,
+      (const T*)w2, (const T*)w3, dw1, db1, dw2, db2, dw3, db3, (T*)dx, B, F,
+      D1, D2, D3, ft);
   return (int)cudaGetLastError();
 }
 
@@ -640,22 +760,14 @@ API int fcnn_fc_fwd(const void* x, const void* w1, const void* b1,
                   B, F, D1, D2, D3, stream);
 }
 
-API int fcnn_fc_bwd_act(const void* g, const void* h1, const void* h2,
-                        const void* w2, const void* w3, void* dh1, void* dh2,
-                        int K, int B, int D1, int D2, int D3, int is_bf16,
-                        void* stream) {
-  return DISPATCH(is_bf16, fc_bwd_act, g, h1, h2, w2, w3, dh1, dh2, K, B, D1,
-                  D2, D3, stream);
-}
-
-API int fcnn_fc_bwd_grad(const void* x, const void* h1, const void* h2,
-                         const void* g, const void* dh1, const void* dh2,
-                         const void* w1, float* dw1, float* db1, float* dw2,
-                         float* db2, float* dw3, float* db3, void* dx, int K,
-                         int B, int F, int D1, int D2, int D3, int is_bf16,
-                         void* stream) {
-  return DISPATCH(is_bf16, fc_bwd_grad, x, h1, h2, g, dh1, dh2, w1, dw1, db1,
-                  dw2, db2, dw3, db3, dx, K, B, F, D1, D2, D3, stream);
+API int fcnn_fc_bwd(const void* x, const void* h1, const void* h2,
+                    const void* g, const void* w1, const void* w2,
+                    const void* w3, float* dw1, float* db1, float* dw2,
+                    float* db2, float* dw3, float* db3, void* dx, int K,
+                    int B, int F, int D1, int D2, int D3, int is_bf16,
+                    void* stream) {
+  return DISPATCH(is_bf16, fc_bwd, x, h1, h2, g, w1, w2, w3, dw1, db1, dw2,
+                  db2, dw3, db3, dx, K, B, F, D1, D2, D3, stream);
 }
 
 // ---- single-user kernels: one user's tensors (no K axis) per launch ------
@@ -695,20 +807,12 @@ API int fcnn_user_fc_fwd(const void* x, const void* w1, const void* b1,
                   B, F, D1, D2, D3, stream);
 }
 
-API int fcnn_user_fc_bwd_act(const void* g, const void* h1, const void* h2,
-                             const void* w2, const void* w3, void* dh1,
-                             void* dh2, int B, int D1, int D2, int D3,
-                             int is_bf16, void* stream) {
-  return DISPATCH(is_bf16, fc_bwd_act, g, h1, h2, w2, w3, dh1, dh2, 1, B, D1,
-                  D2, D3, stream);
-}
-
-API int fcnn_user_fc_bwd_grad(const void* x, const void* h1, const void* h2,
-                              const void* g, const void* dh1, const void* dh2,
-                              const void* w1, float* dw1, float* db1,
-                              float* dw2, float* db2, float* dw3, float* db3,
-                              void* dx, int B, int F, int D1, int D2, int D3,
-                              int is_bf16, void* stream) {
-  return DISPATCH(is_bf16, fc_bwd_grad, x, h1, h2, g, dh1, dh2, w1, dw1, db1,
-                  dw2, db2, dw3, db3, dx, 1, B, F, D1, D2, D3, stream);
+API int fcnn_user_fc_bwd(const void* x, const void* h1, const void* h2,
+                         const void* g, const void* w1, const void* w2,
+                         const void* w3, float* dw1, float* db1, float* dw2,
+                         float* db2, float* dw3, float* db3, void* dx, int B,
+                         int F, int D1, int D2, int D3, int is_bf16,
+                         void* stream) {
+  return DISPATCH(is_bf16, fc_bwd, x, h1, h2, g, w1, w2, w3, dw1, db1, dw2,
+                  db2, dw3, db3, dx, 1, B, F, D1, D2, D3, stream);
 }

@@ -14,7 +14,8 @@ stream and raises on a launch error.  There is no fallback from the card
 to the twin.
 
 ``LAUNCHES`` counts, per wrapper, the ``__global__`` launches it made (the
-backward wrappers make two per call); ``LAUNCHES_BF16`` counts those of
+conv backward wrappers make two per call, the others one);
+``LAUNCHES_BF16`` counts those of
 them that ran the bf16 instantiation.  The TPU kernels tile their grid over
 ``block_k`` users; the CUDA kernels choose their own tiling, so the port
 takes no ``block_k`` and needs no phantom padding of the cohort.
@@ -43,14 +44,12 @@ _LIB = _build.Library("fused_cnn", {
     "fcnn_conv_bwd_partial": [_P] * 6 + [_I] * 9,
     "fcnn_conv_bwd_finish": [_P] * 8 + [_I] * 8,
     "fcnn_fc_fwd": [_P] * 10 + [_I] * 7,
-    "fcnn_fc_bwd_act": [_P] * 7 + [_I] * 6,
-    "fcnn_fc_bwd_grad": [_P] * 14 + [_I] * 7,
+    "fcnn_fc_bwd": [_P] * 14 + [_I] * 7,
     "fcnn_user_conv_pool_fwd": [_P] * 7 + [_I] * 6,
     "fcnn_user_conv_bwd_partial": [_P] * 6 + [_I] * 8,
     "fcnn_user_conv_bwd_finish": [_P] * 8 + [_I] * 7,
     "fcnn_user_fc_fwd": [_P] * 10 + [_I] * 6,
-    "fcnn_user_fc_bwd_act": [_P] * 7 + [_I] * 5,
-    "fcnn_user_fc_bwd_grad": [_P] * 14 + [_I] * 6,
+    "fcnn_user_fc_bwd": [_P] * 14 + [_I] * 6,
 }, "fcnn_error_string", LAUNCHES)
 LAUNCHES_BF16: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 f32 = torch.float32
@@ -252,26 +251,28 @@ def _fc_chain_bwd(flat, res, params, dlogits, user: bool):
     _build.check("h1", h1, (k, bs, d1), dt)
     _build.check("h2", h2, (k, bs, d2), dt)
     _build.check("dlogits", dlogits, (k, bs, d3), dt)
+    # the kernel copies whole 4-byte words and gives a thread to a column
+    if max(d1, d2, d3) > 256 or (f | d1 | d2 | d3) % 2:
+        raise ValueError(f"fc_chain_bwd: widths {(f, d1, d2, d3)} must be "
+                         "even and the layers' at most 256")
+    for name, t in (("flat", flat), ("h1", h1), ("h2", h2),
+                    ("dlogits", dlogits), *((f"{n}.w", params[n]["w"])
+                                            for n in ("fc1", "fc2", "fc3"))):
+        _build.check(name, t, t.shape, dt, align=4)
     new = lambda d, *s: torch.empty(s, dtype=d, device=flat.device)
-    dh1, dh2 = new(dt, k, bs, d1), new(dt, k, bs, d2)
     g1 = {"w": new(f32, k, f, d1), "b": new(f32, k, d1)}
     g2 = {"w": new(f32, k, d1, d2), "b": new(f32, k, d2)}
     g3 = {"w": new(f32, k, d2, d3), "b": new(f32, k, d3)}
     dflat = new(dt, k, bs, f)
     p1, p2, p3 = params["fc1"], params["fc2"], params["fc3"]
-    bf = int(dt == torch.bfloat16)
     with torch.cuda.device(flat.device):
-        _launch(user, "fc_chain_bwd", "fcnn_fc_bwd_act",
-                [dlogits.data_ptr(), h1.data_ptr(), h2.data_ptr(),
-                 p2["w"].data_ptr(), p3["w"].data_ptr(), dh1.data_ptr(),
-                 dh2.data_ptr()], k, [bs, d1, d2, d3, bf])
-        _launch(user, "fc_chain_bwd", "fcnn_fc_bwd_grad",
+        _launch(user, "fc_chain_bwd", "fcnn_fc_bwd",
                 [flat.data_ptr(), h1.data_ptr(), h2.data_ptr(),
-                 dlogits.data_ptr(), dh1.data_ptr(), dh2.data_ptr(),
-                 p1["w"].data_ptr(), g1["w"].data_ptr(), g1["b"].data_ptr(),
+                 dlogits.data_ptr(), p1["w"].data_ptr(), p2["w"].data_ptr(),
+                 p3["w"].data_ptr(), g1["w"].data_ptr(), g1["b"].data_ptr(),
                  g2["w"].data_ptr(), g2["b"].data_ptr(), g3["w"].data_ptr(),
                  g3["b"].data_ptr(), dflat.data_ptr()], k,
-                [bs, f, d1, d2, d3, bf])
+                [bs, f, d1, d2, d3, int(dt == torch.bfloat16)])
     return {"fc1": g1, "fc2": g2, "fc3": g3}, dflat
 
 
