@@ -22,8 +22,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    masks differ are printed.  Each kernel's device time (torch.profiler)
    is printed beside its twin's, its bound, the one PyTorch call that
    computes the same function where there is one, and the wall time of
-   back-to-back calls (CUDA events); the fc backward's time is also split
-   by ``__global__`` function;
+   back-to-back calls (CUDA events); the fc forward's and backward's
+   times are also split by ``__global__`` function;
 4. the fused path: ``HSFLSimulation`` at the paper's configuration, 5
    rounds of opt (b=2) with and without the delta codec and 2 rounds of
    every other registered scheme; every kernel's launch count must equal
@@ -46,9 +46,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    must be identical and params and accuracy close;
 8. the zoo path.  (a) flash attention and WKV6 against their twins at
    Llama-3.2-1B's and RWKV6-7B's prefill shapes (B=2, S=2048; masks,
-   ragged S, Sq < Sk; bf16 and f32), each timed beside its twin, its
-   bound and, for attention, ``scaled_dot_product_attention`` (a
-   yardstick only), with both attentions' TFLOP/s; (b) ``make_prefill_step`` on Llama-3.2-1B as
+   ragged S, Sq < Sk; WKV6 also at D=32 and 128; bf16 and f32), each
+   timed beside its twin, its bound and, for attention,
+   ``scaled_dot_product_attention`` (a yardstick only), with both
+   attentions' TFLOP/s; (b) ``make_prefill_step`` on Llama-3.2-1B as
    configured and on RWKV6-7B at full width with 4 of its 32 layers, B=2
    x 2048-token prompts, counts reset just before: one kernel launch per
    layer; (c) the kernel path against the cache path (the token loop of
@@ -643,7 +644,7 @@ def time_kernels(k: int = 10, bs: int = 10, seed: int = 0,
         iters = 10 if user else 50
         split = device_split(lambda: fn(knl), iters=iters)
         ms = sum(split.values())
-        if name == "fc_chain_bwd":
+        if name in ("fc_chain_fwd", "fc_chain_bwd"):
             for fn_name, f_ms in split.items():
                 print(f"  {name + sfx:16s} {'bf16' if bf16 else 'f32 '} per "
                       f"step, __global__ {short_name(fn_name)}: "
@@ -1288,8 +1289,8 @@ def check_zoo_kernels(chk: Check, s: int = ZOO_S):
     D=64) causal, with a window of 256, non-causal, and a ragged S causal
     and not, each at bf16 and at f32 (whose tolerance a wrong mask on
     small rows could not pass), and Sq < Sk; WKV6 at RWKV6-7B's (B=2 x 64
-    heads, D=64) with r/k/v at bf16 and w in f32, and all f32 (y and the
-    final state)."""
+    heads, D=64) with r/k/v at bf16 and w in f32, and all f32, and at
+    ragged S with D=32 and D=128 (y and the final state)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
     from repro_torch.kernels.wkv6 import kernel as wk, ref as wr
@@ -1324,7 +1325,9 @@ def check_zoo_kernels(chk: Check, s: int = ZOO_S):
     for i, (label, (bh, sl, d, dt)) in enumerate(
             [("rwkv6-7b r/k/v bf16, w f32", (ZOO_B * 64, s, 64, bf)),
              ("rwkv6-7b all f32", (ZOO_B * 64, s, 64, f32)),
-             ("ragged S=77, D=32 f32", (16, 77, 32, f32))]):
+             ("ragged S=77, D=32 f32", (16, 77, 32, f32)),
+             ("ragged S=300, D=128 bf16", (32, 300, 128, bf)),
+             ("ragged S=300, D=128 f32", (32, 300, 128, f32))]):
         r, k, v, w, u = wkv_inputs(bh, sl, d, dt, seed=200 + i)
         y, sf = wk.wkv6_bh(r, k, v, w, u)
         yr, sr = wr.wkv6_bh_ref(r, k, v, w, u)

@@ -1,25 +1,31 @@
-"""Time the fc backward and flash-attention kernels of one source tree, on
-one card, so that two trees can be compared in one run.
+"""Time the redesigned kernels of one source tree, on one card, so that
+two trees can be compared in one run.
 
     python3 scripts/kernel_ab.py [--src DIR] [--label NAME]
                                  [--out FILE] [--against FILE]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
-builds that tree's fused-CNN and flash-attention kernels (into the tree's
-own ``build/kernels``), and prints the device time per call
+builds that tree's fused-CNN, flash-attention and WKV6 kernels (into the
+tree's own ``build/kernels``), and prints the device time per call
 (torch.profiler, device events only; ``chip_smoke.device_split``), split
 by ``__global__`` function, of
 
-- ``fc_chain_bwd_k`` at the fused round's shape (K=10 users, batch 10) at
-  f32 and bf16, and the single-user ``fc_chain_bwd`` over the same 10
-  users (one training step);
+- ``fc_chain_fwd_k`` at the fused round's shape (K=10 users, batch 10) at
+  f32 and bf16 and at the eval's (K=1, batch 1000, f32), and the
+  single-user ``fc_chain_fwd`` over the same 10 users (one training
+  step); the outputs also at an odd cohort (K=3, batch 7) and the eval's
+  shape at bf16;
+- ``fc_chain_bwd_k`` at the round's shape at f32 and bf16, and the
+  single-user ``fc_chain_bwd`` over the same 10 users;
+- ``wkv6_bh`` at RWKV6-7B's prefill shape (B=2 x 64 heads, S=2048, D=64;
+  r/k/v bf16 and w f32, and all f32);
 - ``flash_attention_bh`` at Llama-3.2-1B's prefill shape (B=2, S=2048, 32
   q / 8 kv heads, D=64, causal) at bf16 and f32, with its TFLOP/s.
 
 The inputs come from fixed seeds.  ``--out`` saves the outputs; with
-``--against`` the outputs are compared with a saved file: bitwise for the
-fc backward, the largest difference for attention.  To compare two trees
-on one card, run them in turns in one command: A, B, B, A.  Needs a CUDA
+``--against`` the outputs are compared with a saved file: whether they
+are bitwise equal, and the largest difference.  To compare two trees on
+one card, run them in turns in one command: A, B, B, A.  Needs a CUDA
 card; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -31,21 +37,33 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def fc_inputs(cs, k, bs, seed, dt):
+    """The fc chain's inputs on the main path: the twins' conv forward of
+    a cohort of ``k`` users of batch ``bs`` in dtype ``dt``; and labels."""
+    from repro_torch.kernels.fused_cnn import ref
+    params, x, y = cs.make_case(k, bs, seed, "cuda")
+    params, x = cs._cast(params, dt), x.to(dt)
+    a1, _ = ref.conv_pool_fwd_k(x, params["conv1"]["w"], params["conv1"]["b"])
+    a2, _ = ref.conv_pool_fwd_k(a1, params["conv2"]["w"],
+                                params["conv2"]["b"])
+    return a2.reshape(k, bs, -1), params, y
+
+
 def fc_case(cs, dt):
     """The main path's fc backward inputs: the twins' forward of the
     paper's cohort (K=10, batch 10) in dtype ``dt``."""
     import torch
     from repro_torch.kernels.fused_cnn import ref
-    params, x, y = cs.make_case(10, 10, 0, "cuda")
-    params, x = cs._cast(params, dt), x.to(dt)
-    a1, _ = ref.conv_pool_fwd_k(x, params["conv1"]["w"], params["conv1"]["b"])
-    a2, _ = ref.conv_pool_fwd_k(a1, params["conv2"]["w"],
-                                params["conv2"]["b"])
-    flat = a2.reshape(10, 10, -1)
+    flat, params, y = fc_inputs(cs, 10, 10, 0, dt)
     logits, res = ref.fc_chain_fwd_k(flat, params)
     g = ((torch.softmax(logits.float(), -1)
           - torch.nn.functional.one_hot(y, 10).float()) / 10).to(dt)
     return flat, res, params, g
+
+
+def user_slices(params, k):
+    return [{s: {n: t[i] for n, t in params[s].items()} for s in params}
+            for i in range(k)]
 
 
 def report(label: str, what: str, split: dict, cs, flops: float = 0.0):
@@ -74,14 +92,36 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fused_cnn import kernel as fk
+    from repro_torch.kernels.wkv6 import kernel as wk
     torch.backends.cuda.matmul.allow_tf32 = False
-    built = _build.build_all(["fused_cnn", "flash_attention"])
+    built = _build.build_all(["fused_cnn", "flash_attention", "wkv6"])
     print(f"[{args.label}] {cs.card_line()}; kernels of "
           f"{os.path.dirname(_build.__file__)}; built "
           + ", ".join(f"{n} {s:.1f} s" for n, s in built.items()), flush=True)
     outs = {}
     for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        # the fc forward: the round's cohort, an odd one and the eval's
+        for k, bs, seed in ((10, 10, 0), (3, 7, 1), (1, 1000, 2)):
+            flat, params, _ = fc_inputs(cs, k, bs, seed, dt)
+            logits, (h1, h2) = fk.fc_chain_fwd_k(flat, params)
+            outs[f"fc_chain_fwd_k {tag} K={k} B={bs}"] = [logits, h1, h2]
+            if k == 10 or (k == 1 and tag == "f32"):
+                report(args.label, f"fc_chain_fwd_k {tag} K={k} B={bs}",
+                       cs.device_split(
+                           lambda: fk.fc_chain_fwd_k(flat, params), 50), cs)
         flat, res, params, g = fc_case(cs, dt)
+        users = user_slices(params, 10)
+        outs[f"fc_chain_fwd {tag} x 10 users"] = []
+        for i, p in enumerate(users):
+            logits, (h1, h2) = fk.fc_chain_fwd(flat[i], p)
+            outs[f"fc_chain_fwd {tag} x 10 users"] += [logits, h1, h2]
+
+        def single_fwd():
+            for i, p in enumerate(users):
+                fk.fc_chain_fwd(flat[i], p)
+        report(args.label, f"fc_chain_fwd {tag} x 10 users (one step)",
+               cs.device_split(single_fwd, 10), cs)
+
         grads, dflat = fk.fc_chain_bwd_k(flat, res, params, g)
         outs[f"fc_chain_bwd_k {tag}"] = [dflat] + [
             grads[n][leaf] for n in ("fc1", "fc2", "fc3")
@@ -89,15 +129,12 @@ def main(argv=None) -> int:
         report(args.label, f"fc_chain_bwd_k {tag} K=10 B=10",
                cs.device_split(lambda: fk.fc_chain_bwd_k(flat, res, params,
                                                           g), 50), cs)
-        users = [(flat[i], tuple(r[i] for r in res),
-                  {s: {n: t[i] for n, t in params[s].items()}
-                   for s in params}, g[i]) for i in range(10)]
 
-        def single():
-            for f_, r_, p_, g_ in users:
-                fk.fc_chain_bwd(f_, r_, p_, g_)
+        def single_bwd():
+            for i, p in enumerate(users):
+                fk.fc_chain_bwd(flat[i], tuple(r[i] for r in res), p, g[i])
         report(args.label, f"fc_chain_bwd {tag} x 10 users (one step)",
-               cs.device_split(single, 10), cs)
+               cs.device_split(single_bwd, 10), cs)
     flops = 4.0 * 64 * (2048 * 2049 // 2) * 2 * 32   # causal q.k and p.v
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         q, k, v = cs.flash_inputs(2, 32, 8, 2048, 2048, 64, dt, seed=7)
@@ -107,6 +144,15 @@ def main(argv=None) -> int:
                "shape", cs.device_split(
                    lambda: fa.flash_attention_bh(q, k, v, group_size=4), 20),
                cs, flops)
+    # 5 ops a state element and step (FMA = 2) and 5 a column, as
+    # chip_smoke.time_zoo_kernels counts them
+    wflops = 5.0 * 64 * 65 * 2048 * 128
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        r, k, v, w, u = cs.wkv_inputs(128, 2048, 64, dt, seed=8)
+        outs[f"wkv6_bh {tag}"] = list(wk.wkv6_bh(r, k, v, w, u))
+        report(args.label, f"wkv6_bh {tag} RWKV6-7B prefill shape",
+               cs.device_split(lambda: wk.wkv6_bh(r, k, v, w, u), 20), cs,
+               wflops)
     if args.out:
         torch.save({n: [t.cpu() for t in ts] for n, ts in outs.items()},
                    args.out)

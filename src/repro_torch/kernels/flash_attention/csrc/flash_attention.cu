@@ -153,9 +153,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + kBK * LD;
   float* Ps = Vs + kBK * LD;      // [kBQ][kLS]
 
-  const int nq = gridDim.x;
-  const int qt = nq - 1 - blockIdx.x;       // heavy (late) tiles first
-  const int bh = blockIdx.y;
+  // one grid axis, the q tile fastest: block b is tile b % nq of row
+  // b / nq, in the order of a (nq, BH) grid, and BH may pass 65535
+  const unsigned nq = (unsigned)((Sq + kBQ - 1) / kBQ);
+  const int qt = (int)(nq - 1 - blockIdx.x % nq);  // heavy (late) tiles first
+  const int bh = (int)(blockIdx.x / nq);
   const int q0 = qt * kBQ;
   const int off = Sk - Sq;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -313,8 +315,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)BH);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const long long blocks = (long long)((Sq + kBQ - 1) / kBQ) * BH;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_fwd_kernel<T, D><<<(unsigned)blocks, kThreads, smem,
+                           (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, group, causal,
       window, scale);
@@ -870,7 +874,7 @@ API const char* flash_error_string(int code) {
 // q (BH, Sq, D), k and v (BH / group, Sk, D), o (BH, Sq, D), all
 // contiguous, 16-byte aligned, f32 (bf16 = 0: the CUDA-core kernel) or
 // bf16 (bf16 = 1: the tensor-core kernel); D in {32, 64, 128}; 1 <= Sq <=
-// Sk; BH <= 65535.
+// Sk.
 API int flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, int BH, int Sq, int Sk, int D,
                             int group, int causal, int window, float scale,

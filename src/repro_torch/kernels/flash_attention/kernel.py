@@ -69,8 +69,6 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bh: head dim {d} not in "
                          f"{HEAD_DIMS}")
-    if bh > 65535:
-        raise ValueError(f"flash_attention_bh: BH={bh} > 65535")
     _build.check("q", q, (bh, sq, d), dt, align=16)
     _build.check("k", k, (bkv, sk, d), dt, align=16)
     _build.check("v", v, (bkv, sk, d), dt, align=16)

@@ -26,14 +26,17 @@
 // microseconds each), far from the 67 TFLOP/s f32 peak.  In practice a
 // launch of a few microseconds is dominated by launch latency, and the
 // round by the host loop around its 192 training launches (8 per SGD step;
-// 1920 through the single-user kernels at K=10).  The fc backward is one
-// launch that spreads a cohort over every SM (fc_bwd_kernel below).
+// 1920 through the single-user kernels at K=10).  The fc forward and
+// backward are each one launch that spreads a cohort over many SMs
+// (fc_fwd_kernel, fc_bwd_kernel below): layer 1's 784-long sums are
+// sequential chains, so their latency, not the card's rate, bounds them.
 //
 // Design.  The TPU kernels walk a sequential grid over user tiles and keep
 // a whole user's layer in VMEM; here blocks run in parallel in no order, so
 // - every output element is owned by exactly one thread and every sum is
-//   taken in a fixed order: no float atomics, results are identical run to
-//   run;
+//   taken in a fixed order: no float atomics (the fc forward's one integer
+//   atomic only picks which block runs its last two layers), results are
+//   identical run to run;
 // - reductions across blocks (dW over B*H*W rows) go through a second
 //   launch over per-block partial sums;
 // - the conv product z is summed tap by tap in (i, j, c) order with
@@ -56,15 +59,18 @@
 // product of two bf16 values is exact in f32, so fmaf and a separate
 // multiply and add agree there.  rnd<float> is the identity, so the f32
 // instantiation rounds nowhere but in its f32 operations.
-// Weights in shared memory take half the bytes at bf16.  Simple FMA code;
-// tensor cores, TMA and wgmma are left for later work.
+// Weights in shared memory take half the bytes at bf16.  FMA code on the
+// CUDA cores (the fc forward stages with TMA); the tensor cores are left
+// for later work.
 //
 // Interface: plain C functions, bound with ctypes.  Each launches one
 // __global__ function on the given stream and returns cudaGetLastError().
 // The last int argument selects the compute type (0 = f32, 1 = bf16).
 
+#include <cuda.h>          // CUtensorMap and its enums only; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <algorithm>
 
@@ -74,7 +80,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kFcThreads = 128;
-constexpr int kFcRows = 8;  // batch rows per fc block
 
 typedef __nv_bfloat16 bf16;
 
@@ -301,69 +306,6 @@ conv_bwd_finish_kernel(const float* __restrict__ part,
     acc = rnd<T>(__fadd_rn(acc, rnd<T>(d)));
   }
   dx[t] = to<T>(acc);
-}
-
-// ---------------------------------------------------------------------------
-// fc_chain_fwd: h1 = relu(x W1 + b1), h2 = relu(h1 W2 + b2), out = h2 W3 + b3.
-// One block per (row tile of kFcRows batch rows, user); the tile's input
-// rows and its h1/h2 stay in shared memory between the three products.
-// Thread j owns output column j of each layer for all rows of the tile.
-// grid = (ceil(B / kFcRows), K).
-// ---------------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ void dense_rows(const T* in_s, int fin,
-                                           const T* __restrict__ w,
-                                           const T* __restrict__ b,
-                                           int fout, bool relu, T* out_s,
-                                           T* __restrict__ out_g, int rows) {
-  for (int j = threadIdx.x; j < fout; j += blockDim.x) {
-    float acc[kFcRows];
-#pragma unroll
-    for (int r = 0; r < kFcRows; ++r) acc[r] = 0.f;
-    for (int ff = 0; ff < fin; ++ff) {
-      const float wv = f(w[(size_t)ff * fout + j]);
-#pragma unroll
-      for (int r = 0; r < kFcRows; ++r)
-        acc[r] = fmaf(f(in_s[r * fin + ff]), wv, acc[r]);
-    }
-    const float bj = f(b[j]);
-#pragma unroll
-    for (int r = 0; r < kFcRows; ++r) {
-      float v = rnd<T>(__fadd_rn(rnd<T>(acc[r]), bj));
-      if (relu) v = fmaxf(v, 0.f);
-      if (out_s) out_s[r * fout + j] = to<T>(v);
-      if (r < rows) out_g[(size_t)r * fout + j] = to<T>(v);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kFcThreads)
-fc_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-              const T* __restrict__ b1, const T* __restrict__ w2,
-              const T* __restrict__ b2, const T* __restrict__ w3,
-              const T* __restrict__ b3, T* __restrict__ out,
-              T* __restrict__ h1, T* __restrict__ h2, int B, int F, int D1,
-              int D2, int D3) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k = blockIdx.y, r0 = blockIdx.x * kFcRows;
-  const int rows = min(kFcRows, B - r0);
-  T* xs = reinterpret_cast<T*>(smem_raw);  // (kFcRows, F)
-  T* h1s = xs + kFcRows * F;               // (kFcRows, D1)
-  T* h2s = h1s + kFcRows * D1;             // (kFcRows, D2)
-  const T* xk = x + ((size_t)k * B + r0) * F;
-  for (int i = threadIdx.x; i < kFcRows * F; i += blockDim.x)
-    xs[i] = i < rows * F ? xk[i] : to<T>(0.f);
-  __syncthreads();
-  const size_t row = (size_t)k * B + r0;
-  dense_rows<T>(xs, F, w1 + (size_t)k * F * D1, b1 + (size_t)k * D1, D1,
-                true, h1s, h1 + row * D1, rows);
-  __syncthreads();
-  dense_rows<T>(h1s, D1, w2 + (size_t)k * D1 * D2, b2 + (size_t)k * D2, D2,
-                true, h2s, h2 + row * D2, rows);
-  __syncthreads();
-  dense_rows<T>(h2s, D2, w3 + (size_t)k * D2 * D3, b3 + (size_t)k * D3, D3,
-                false, nullptr, out + row * D3, rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -618,6 +560,456 @@ fc_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fc_chain_fwd, one launch: h1 = relu(x W1 + b1), h2 = relu(h1 W2 + b2),
+// out = h2 W3 + b3, saving h1 and h2.  grid = (nct, nrt, K), 128 threads;
+// the wrapper picks the tile (rows <= 16 batch rows, cols <= 16 columns of
+// D1; kernel.py fc_fwd_tiling).  Block (c, t, k) computes layer 1 for the
+// rows of row tile t of user k and the D1 columns of column tile c, a
+// thread holding two rows of one column: it streams F in chunks of kFc
+// through a ring of kFcStages stages in shared memory, each chunk of its
+// x rows and of its W1 slice one TMA box (3-D tensor maps over x and W1,
+// thread 0 issuing, an mbarrier a stage); where a row is no whole 16
+// bytes, with cp.async instead.  It writes its h1 tile, and the last of
+// the nct blocks of (k, t) to finish (a counter per (k, t) in global
+// memory, the last block sets it back to 0) copies the tile's whole h1
+// rows (cp.async, through L2), W2 and W3 (a TMA bulk copy each) in and
+// runs layers 2 and 3 for those rows.  Every output sums over its input
+// index in ascending order, one fmaf per term, then rounds to T and adds
+// its bias as the one-block-per-row-tile version of this kernel did, so
+// the bits are that version's and the same on every run (the counter only
+// picks which block runs the small layers).
+// ---------------------------------------------------------------------------
+
+constexpr int kFc = 128;        // F per staged chunk
+constexpr int kFcStages = 3;    // chunks in the ring
+constexpr int kFcMaxRows = 16;  // batch rows of a tile
+constexpr int kFcMaxCols = 16;  // D1 columns of a tile
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// spin until the barrier's phase of this parity has completed; a wait that
+// never ends (a pipeline fault) traps, so the launch fails instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  for (unsigned polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// one box of a 3-D tensor map into shared memory (128-byte aligned),
+// reported to the mbarrier `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         unsigned bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// one contiguous run of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory by the TMA unit, reported to the
+// mbarrier `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ bf16 ldcg(const bf16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// copy rows x cols of src (row stride sld, global) to dst (row stride ld,
+// shared) with the block's threads: 16-byte cp.async.cg where every row
+// starts on 16 bytes and is whole 16-byte pieces, else element by element.
+// Both read through L2 only (h1, which other blocks of this launch write,
+// cannot hit a stale line in L1) and are visible after the next
+// __syncthreads once waited for
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src,
+                                           int sld, int rows, int cols) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const bool vec = cols % V == 0 && ld % V == 0 && sld % V == 0 &&
+                   reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  const int step = vec ? V : 1;
+  const int pieces = cols / step;
+  // a thread keeps one piece of a row and walks the rows, `per` at a time
+  const int per = max(1, (int)blockDim.x / pieces);
+  for (int p0 = 0; p0 < pieces; p0 += blockDim.x) {
+    const int p = p0 + (int)threadIdx.x % min(pieces, (int)blockDim.x);
+    const int r0 = (int)threadIdx.x / min(pieces, (int)blockDim.x);
+    if (p >= pieces || r0 >= per) continue;
+    for (int r = r0; r < rows; r += per) {
+      T* d = dst + r * ld + p * step;
+      const T* sp = src + (size_t)r * sld + p * step;
+      if (vec)
+        cp_async16(d, sp);
+      else
+        *d = ldcg(sp);
+    }
+  }
+}
+
+// the x rows of the ring are padded by 16 bytes, so the two rows that a
+// warp reads at once fall on different banks
+template <typename T>
+constexpr int kFcLdx = kFc + 16 / (int)sizeof(T);
+
+template <typename T>
+constexpr int kFcStage = kFcMaxRows * kFcLdx<T> + kFc * kFcMaxCols;
+
+// out[r, j] = T(T(sum_i a[r, i] w[i, j]) + b[j]) (ReLU'd if relu) for r <
+// rows, j < N: a (rows x I) in shared memory, w (I x N) in shared or
+// global memory.  A thread owns column j and rows rq, rq + per, ... (U of
+// them), reading 4 elements of a row at once where I allows
+template <int U, typename T>
+__device__ __forceinline__ void dense_tail(const T* a, int I, const T* w,
+                                           const T* __restrict__ b, int N,
+                                           bool relu, T* out_s,
+                                           T* __restrict__ out_g, int rows) {
+  const int cols = min(N, kFcThreads);
+  const int per = kFcThreads / cols;
+  const int rq = threadIdx.x / cols;
+  if (rq >= per) return;
+  for (int j = threadIdx.x % cols; j < N; j += cols) {
+    float acc[U];
+    const T* ar[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      acc[u] = 0.f;
+      ar[u] = a + min(rq + u * per, rows - 1) * I;
+    }
+    int i = 0;
+    if (I % 4 == 0) {
+#pragma unroll 4
+      for (; i < I; i += 4) {
+        const float w0 = f(w[(size_t)i * N + j]);
+        const float w1 = f(w[(size_t)(i + 1) * N + j]);
+        const float w2 = f(w[(size_t)(i + 2) * N + j]);
+        const float w3 = f(w[(size_t)(i + 3) * N + j]);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float4 av = load4(ar[u] + i);
+          acc[u] = fmaf(av.x, w0, acc[u]);
+          acc[u] = fmaf(av.y, w1, acc[u]);
+          acc[u] = fmaf(av.z, w2, acc[u]);
+          acc[u] = fmaf(av.w, w3, acc[u]);
+        }
+      }
+    }
+    for (; i < I; ++i) {
+      const float wv = f(w[(size_t)i * N + j]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc[u] = fmaf(f(ar[u][i]), wv, acc[u]);
+    }
+    const float bj = f(b[j]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = rq + u * per;
+      if (r >= rows) break;
+      float v = rnd<T>(__fadd_rn(rnd<T>(acc[u]), bj));
+      if (relu) v = fmaxf(v, 0.f);
+      if (out_s) out_s[r * N + j] = to<T>(v);
+      out_g[(size_t)r * N + j] = to<T>(v);
+    }
+  }
+}
+
+// dense_tail with U = the chains a thread needs, rounded up to 1, 2, 4,
+// 8 or 16 (rows <= 16)
+template <typename T>
+__device__ __forceinline__ void dense_tail_any(const T* a, int I, const T* w,
+                                               const T* __restrict__ b, int N,
+                                               bool relu, T* out_s,
+                                               T* __restrict__ out_g,
+                                               int rows) {
+  const int per = kFcThreads / min(N, kFcThreads);
+  const int need = (rows + per - 1) / per;
+  if (need <= 1)
+    dense_tail<1>(a, I, w, b, N, relu, out_s, out_g, rows);
+  else if (need <= 2)
+    dense_tail<2>(a, I, w, b, N, relu, out_s, out_g, rows);
+  else if (need <= 4)
+    dense_tail<4>(a, I, w, b, N, relu, out_s, out_g, rows);
+  else if (need <= 8)
+    dense_tail<8>(a, I, w, b, N, relu, out_s, out_g, rows);
+  else
+    dense_tail<16>(a, I, w, b, N, relu, out_s, out_g, rows);
+}
+
+// the regions of the tail (layers 2 and 3), in elements of T, over the
+// ring once layer 1 is done: the h1 and h2 rows, then W2 and W3 where
+// they fit (`staged`; else the tail reads them from global memory)
+struct FcTail {
+  int h1, h2, w2, w3, total, total_unstaged;
+  __host__ __device__ FcTail(int rows, int D1, int D2, int D3) {
+    h1 = 0;
+    h2 = h1 + up(rows * D1);
+    total_unstaged = h2 + up(rows * D2);
+    w2 = total_unstaged;
+    w3 = w2 + up(D1 * D2);
+    total = w3 + up(D2 * D3);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kFcThreads)
+fc_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+              const T* __restrict__ b1, const T* __restrict__ w2,
+              const T* __restrict__ b2, const T* __restrict__ w3,
+              const T* __restrict__ b3, T* __restrict__ out,
+              T* __restrict__ h1, T* __restrict__ h2,
+              int* __restrict__ counters, int B, int F, int D1, int D2,
+              int D3, int rt, int ct, int staged, int tma,
+              const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap tw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // 128-byte aligned, as the TMA unit writes boxes
+  T* base = reinterpret_cast<T*>(
+      smem_raw + ((128 - smem_u32(smem_raw) % 128) % 128));
+  // x rows in the ring: padded by 16 bytes for cp.async, dense as TMA
+  // writes its box
+  const int ldx = tma ? kFc : kFcLdx<T>;
+  const int k = blockIdx.z, tile = blockIdx.y;
+  const int r0 = tile * rt, rows = min(rt, B - r0);
+  const int j0 = blockIdx.x * ct, cols = min(ct, D1 - j0);
+  const size_t row = (size_t)k * B + r0;
+  const T* xk = x + row * F;
+  const T* w1k = w1 + (size_t)k * F * D1 + j0;
+
+  // chunk ch of x's rows and of the W1 slice into its ring stage: with
+  // `tma`, one box of each by thread 0 (boxes of rt x kFc and kFc x ct,
+  // zeros past B, F and D1), the stage's mbarrier counting the bytes;
+  // else cp.async pieces, a commit group a chunk
+  __shared__ __align__(8) unsigned long long bars[kFcStages];
+  auto issue = [&](int ch) {
+    if (ch * kFc < F) {
+      T* xs = base + (ch % kFcStages) * kFcStage<T>;
+      T* ws = xs + kFcMaxRows * kFcLdx<T>;
+      const int f0 = ch * kFc, n = min(kFc, F - f0);
+      if (!tma) {
+        stage_tile(xs, ldx, xk + f0, F, rows, n);
+        stage_tile(ws, ct, w1k + (size_t)f0 * D1, D1, n, cols);
+      } else if (threadIdx.x == 0) {
+        const unsigned bar = smem_u32(&bars[ch % kFcStages]);
+        mbar_expect_tx(bar, (rt + ct) * kFc * (int)sizeof(T));
+        tma_load(xs, &tx, bar, f0, r0, k);
+        tma_load(ws, &tw, bar, j0, f0, k);
+      }
+    }
+    if (!tma) asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // layer 1: a thread holds rows 2 rp and 2 rp + 1 of column jj
+  const int rp = threadIdx.x / ct, jj = threadIdx.x % ct;
+  const bool live = rp < (rows + 1) / 2 && jj < cols;
+  const int ra = min(2 * rp, rows - 1), rb = min(2 * rp + 1, rows - 1);
+  float acc0 = 0.f, acc1 = 0.f;
+  const int nch = (F + kFc - 1) / kFc;
+  if (tma) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kFcStages; ++i) mbar_init(smem_u32(&bars[i]), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  issue(0);
+  issue(1);
+  for (int ch = 0; ch < nch; ++ch) {
+    if (tma)
+      mbar_wait(smem_u32(&bars[ch % kFcStages]), (ch / kFcStages) & 1);
+    else
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    issue(ch + kFcStages - 1);
+    if (!live) continue;
+    const T* xs = base + (ch % kFcStages) * kFcStage<T>;
+    const T* xa = xs + ra * ldx;
+    const T* xb = xs + rb * ldx;
+    const T* wc = xs + kFcMaxRows * kFcLdx<T> + jj;
+    const int n = min(kFc, F - ch * kFc);
+    int i = 0;
+#pragma unroll 4
+    for (; i + 4 <= n; i += 4) {
+      const float4 pa = load4(xa + i), pb = load4(xb + i);
+      const float v0 = f(wc[i * ct]), v1 = f(wc[(i + 1) * ct]);
+      const float v2 = f(wc[(i + 2) * ct]), v3 = f(wc[(i + 3) * ct]);
+      acc0 = fmaf(pa.x, v0, acc0);
+      acc0 = fmaf(pa.y, v1, acc0);
+      acc0 = fmaf(pa.z, v2, acc0);
+      acc0 = fmaf(pa.w, v3, acc0);
+      acc1 = fmaf(pb.x, v0, acc1);
+      acc1 = fmaf(pb.y, v1, acc1);
+      acc1 = fmaf(pb.z, v2, acc1);
+      acc1 = fmaf(pb.w, v3, acc1);
+    }
+    for (; i < n; ++i) {
+      const float v0 = f(wc[i * ct]);
+      acc0 = fmaf(f(xa[i]), v0, acc0);
+      acc1 = fmaf(f(xb[i]), v0, acc1);
+    }
+  }
+  if (live) {
+    const float bj = f(b1[(size_t)k * D1 + j0 + jj]);
+    const float v0 = fmaxf(rnd<T>(__fadd_rn(rnd<T>(acc0), bj)), 0.f);
+    const float v1 = fmaxf(rnd<T>(__fadd_rn(rnd<T>(acc1), bj)), 0.f);
+    h1[(row + 2 * rp) * D1 + j0 + jj] = to<T>(v0);
+    if (2 * rp + 1 < rows) h1[(row + 2 * rp + 1) * D1 + j0 + jj] = to<T>(v1);
+  }
+
+  // the last block of (k, tile) to get here runs layers 2 and 3: the
+  // block's h1 stores are published by thread 0's fence after the barrier,
+  // and the last block's thread 0 fences again before its block reads
+  // the other blocks' h1 (through L2)
+  __shared__ int last;
+  __syncthreads();
+  int* count = counters + (size_t)k * gridDim.y + tile;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(count, 1) == (int)gridDim.x - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+
+  const FcTail at(rows, D1, D2, D3);
+  T* h1s = base + at.h1;
+  T* h2s = base + at.h2;
+  const T* w2k = w2 + (size_t)k * D1 * D2;
+  const T* w3k = w3 + (size_t)k * D2 * D3;
+  // W2 and W3, unchanged by this launch, come as one TMA bulk copy each
+  // where their ends allow; h1, which other blocks wrote, by cp.async
+  // through L2
+  const unsigned n2 = D1 * D2 * sizeof(T), n3 = D2 * D3 * sizeof(T);
+  const bool bulk = staged && n2 % 16 == 0 && n3 % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(w2k) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(w3k) % 16 == 0 &&
+                    at.w2 * sizeof(T) % 16 == 0 && at.w3 * sizeof(T) % 16 == 0;
+  __shared__ __align__(8) unsigned long long tailbar;
+  if (bulk && threadIdx.x == 0) {
+    const unsigned bar = smem_u32(&tailbar);
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, n2 + n3);
+    bulk_copy(base + at.w2, w2k, n2, bar);
+    bulk_copy(base + at.w3, w3k, n3, bar);
+  }
+  stage_tile(h1s, D1, h1 + row * D1, D1, rows, D1);
+  if (staged && !bulk) {
+    stage_tile(base + at.w2, D2, w2k, D2, D1, D2);
+    stage_tile(base + at.w3, D3, w3k, D3, D2, D3);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  if (bulk) mbar_wait(smem_u32(&tailbar), 0);
+  if (staged) {
+    dense_tail_any<T>(h1s, D1, base + at.w2, b2 + (size_t)k * D2, D2, true,
+                      h2s, h2 + row * D2, rows);
+    __syncthreads();
+    dense_tail_any<T>(h2s, D2, base + at.w3, b3 + (size_t)k * D3, D3, false,
+                      nullptr, out + row * D3, rows);
+  } else {
+    dense_tail_any<T>(h1s, D1, w2k, b2 + (size_t)k * D2, D2, true, h2s,
+                      h2 + row * D2, rows);
+    __syncthreads();
+    dense_tail_any<T>(h2s, D2, w3k, b3 + (size_t)k * D3, D3, false, nullptr,
+                      out + row * D3, rows);
+  }
+  if (threadIdx.x == 0) *count = 0;
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
+// the library needs no link to libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (d2, d1, d0) array of T as a 3-D tensor map (d0 fastest) with boxes of
+// b0 x b1 x 1, no swizzle, zeros past its ends; false where the map cannot
+// be made (a stride or a box row not whole 16 bytes, no encoder)
+template <typename T>
+bool make_map3(CUtensorMap* map, const void* ptr, int d0, int d1, int d2,
+               int b0, int b1) {
+  const EncodeTiled encode = encode_tiled();
+  const int sz = (int)sizeof(T);
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 ||
+      d0 * sz % 16 || b0 * sz % 16)
+    return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
+                              (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * sz,
+                                 (cuuint64_t)d0 * d1 * sz};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map,
+                sz == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 inline unsigned blocks_for(long long n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
@@ -670,15 +1062,37 @@ int conv_bwd_finish(const float* part, const void* dz, const void* da,
 template <typename T>
 int fc_fwd(const void* x, const void* w1, const void* b1, const void* w2,
            const void* b2, const void* w3, const void* b3, void* out,
-           void* h1, void* h2, int K, int B, int F, int D1, int D2, int D3,
-           void* stream) {
-  const size_t smem = (size_t)kFcRows * (F + D1 + D2) * sizeof(T);
+           void* h1, void* h2, int* counters, int K, int B, int F, int D1,
+           int D2, int D3, int rt, int ct, void* stream) {
+  if (rt < 1 || rt > kFcMaxRows || ct < 1 || ct > kFcMaxCols)
+    return (int)cudaErrorInvalidValue;
+  const int nct = (D1 + ct - 1) / ct, nrt = (B + rt - 1) / rt;
+  if (nrt > 65535 || K > 65535) return (int)cudaErrorInvalidValue;
+  // 227 KB less the static flag and barriers and the 128 bytes that align
+  // the base; the tail stages W2 and W3 where they fit beside the h1 and
+  // h2 rows
+  const size_t limit = 227 * 1024 - 128 - 128;
+  const size_t ring = (size_t)kFcStages * kFcStage<T> * sizeof(T);
+  const FcTail at(rt, D1, D2, D3);
+  int staged = 1;
+  size_t smem = std::max(ring, (size_t)at.total * sizeof(T));
+  if (smem > limit) {
+    staged = 0;
+    smem = std::max(ring, (size_t)at.total_unstaged * sizeof(T));
+  }
+  if (smem > limit) return (int)cudaErrorInvalidValue;
+  // layer 1 stages by TMA where both maps can be made, else by cp.async
+  CUtensorMap tx{}, tw{};
+  const int tma = make_map3<T>(&tx, x, F, B, K, kFc, rt) &&
+                  make_map3<T>(&tw, w1, D1, F, K, ct, kFc);
+  smem += 128;
   int rc = set_smem((const void*)fc_fwd_kernel<T>, smem);
   if (rc) return rc;
-  dim3 grid(blocks_for(B, kFcRows), K);
+  dim3 grid(nct, nrt, K);
   fc_fwd_kernel<T><<<grid, kFcThreads, smem, (cudaStream_t)stream>>>(
       (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
-      (const T*)w3, (const T*)b3, (T*)out, (T*)h1, (T*)h2, B, F, D1, D2, D3);
+      (const T*)w3, (const T*)b3, (T*)out, (T*)h1, (T*)h2, counters, B, F,
+      D1, D2, D3, rt, ct, staged, tma, tx, tw);
   return (int)cudaGetLastError();
 }
 
@@ -751,13 +1165,14 @@ API int fcnn_conv_bwd_finish(const float* part, const void* dz,
                   dx, K, B, H, W, C, O, nchunks, stream);
 }
 
+// counters: K * ceil(B / rows) ints, 0 on entry and on return
 API int fcnn_fc_fwd(const void* x, const void* w1, const void* b1,
                     const void* w2, const void* b2, const void* w3,
-                    const void* b3, void* out, void* h1, void* h2, int K,
-                    int B, int F, int D1, int D2, int D3, int is_bf16,
-                    void* stream) {
-  return DISPATCH(is_bf16, fc_fwd, x, w1, b1, w2, b2, w3, b3, out, h1, h2, K,
-                  B, F, D1, D2, D3, stream);
+                    const void* b3, void* out, void* h1, void* h2,
+                    int* counters, int K, int B, int F, int D1, int D2,
+                    int D3, int rows, int cols, int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, fc_fwd, x, w1, b1, w2, b2, w3, b3, out, h1, h2,
+                  counters, K, B, F, D1, D2, D3, rows, cols, stream);
 }
 
 API int fcnn_fc_bwd(const void* x, const void* h1, const void* h2,
@@ -800,11 +1215,11 @@ API int fcnn_user_conv_bwd_finish(const float* part, const void* dz,
 
 API int fcnn_user_fc_fwd(const void* x, const void* w1, const void* b1,
                          const void* w2, const void* b2, const void* w3,
-                         const void* b3, void* out, void* h1, void* h2, int B,
-                         int F, int D1, int D2, int D3, int is_bf16,
-                         void* stream) {
-  return DISPATCH(is_bf16, fc_fwd, x, w1, b1, w2, b2, w3, b3, out, h1, h2, 1,
-                  B, F, D1, D2, D3, stream);
+                         const void* b3, void* out, void* h1, void* h2,
+                         int* counters, int B, int F, int D1, int D2, int D3,
+                         int rows, int cols, int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, fc_fwd, x, w1, b1, w2, b2, w3, b3, out, h1, h2,
+                  counters, 1, B, F, D1, D2, D3, rows, cols, stream);
 }
 
 API int fcnn_user_fc_bwd(const void* x, const void* h1, const void* h2,

@@ -43,12 +43,12 @@ _LIB = _build.Library("fused_cnn", {
     "fcnn_conv_pool_fwd": [_P] * 7 + [_I] * 8,
     "fcnn_conv_bwd_partial": [_P] * 6 + [_I] * 9,
     "fcnn_conv_bwd_finish": [_P] * 8 + [_I] * 8,
-    "fcnn_fc_fwd": [_P] * 10 + [_I] * 7,
+    "fcnn_fc_fwd": [_P] * 11 + [_I] * 9,
     "fcnn_fc_bwd": [_P] * 14 + [_I] * 7,
     "fcnn_user_conv_pool_fwd": [_P] * 7 + [_I] * 6,
     "fcnn_user_conv_bwd_partial": [_P] * 6 + [_I] * 8,
     "fcnn_user_conv_bwd_finish": [_P] * 8 + [_I] * 7,
-    "fcnn_user_fc_fwd": [_P] * 10 + [_I] * 6,
+    "fcnn_user_fc_fwd": [_P] * 11 + [_I] * 8,
     "fcnn_user_fc_bwd": [_P] * 14 + [_I] * 6,
 }, "fcnn_error_string", LAUNCHES)
 LAUNCHES_BF16: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
@@ -218,15 +218,46 @@ def _fc_tensors(params: dict):
             for leaf in ("w", "b")]
 
 
+FC_FWD_MAX_ROWS = FC_FWD_MAX_COLS = 16     # fused_cnn.cu kFcMaxRows/Cols
+
+
+def fc_fwd_tiling(k: int, bs: int, d1: int) -> Tuple[int, int]:
+    """The fc forward kernel's tile: (rows, cols), at most 16 batch rows
+    and 16 of fc1's D1 output columns.  Its grid is (ceil(D1 / cols),
+    ceil(B / rows), K): the paper's cohort (K=10, B=10, D1=128) gives 80
+    blocks, the eval (K=1, B=1000) 504, one user 8.  The tiling changes
+    no bit of the result: every sum runs over its input in order."""
+    del k
+    return min(bs, FC_FWD_MAX_ROWS), min(d1, FC_FWD_MAX_COLS)
+
+
+# per (device, stream): the fc forward's per-tile counters, which the
+# kernel leaves at 0; a buffer of its own per stream, so that launches on
+# two streams never share one
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 def _fc_chain_fwd(flat, params, user: bool):
     dt, k, bs, f, d1, d2, d3 = _fc_dims(flat, params)
     new = lambda *s: torch.empty(s, dtype=dt, device=flat.device)
     logits, h1, h2 = new(k, bs, d3), new(k, bs, d1), new(k, bs, d2)
+    rows, cols = fc_fwd_tiling(k, bs, d1)
     with torch.cuda.device(flat.device):
+        counters = _counters(flat.device, k * -(-bs // rows))
         _launch(user, "fc_chain_fwd", "fcnn_fc_fwd",
                 [flat.data_ptr()] + [t.data_ptr() for t in _fc_tensors(params)]
-                + [logits.data_ptr(), h1.data_ptr(), h2.data_ptr()], k,
-                [bs, f, d1, d2, d3, int(dt == torch.bfloat16)])
+                + [logits.data_ptr(), h1.data_ptr(), h2.data_ptr(),
+                   counters.data_ptr()], k,
+                [bs, f, d1, d2, d3, rows, cols, int(dt == torch.bfloat16)])
     return logits, (h1, h2)
 
 

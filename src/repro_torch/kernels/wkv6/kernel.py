@@ -10,11 +10,13 @@ and rounding it to bf16 would change every result, so the wrapper takes
 exactly these dtypes and raises on any other, on the CPU too.
 
 On CPU tensors the wrapper runs the plain twin of ``ref.py``; on CUDA
-tensors it checks shapes, contiguity and alignment, allocates outputs with
-``torch.empty``, launches on the current stream and raises on a launch
-error.  There is no fallback from the card to the twin.  ``chunk`` is the
-reference's TPU chunk length, accepted and unused: the kernel walks the
-timesteps in a loop and takes any ``S >= 1``.
+tensors it checks shapes and contiguity, copies an input whose data does
+not start on 16 bytes (the kernel stages whole 16-byte pieces), allocates
+outputs with ``torch.empty``, launches on the current stream and raises on
+a launch error.  There is no fallback from the card to the twin.  The
+kernel is built for the head dims of ``HEAD_DIMS``; any other raises.
+``chunk`` is the reference's TPU chunk length, accepted and unused: the
+kernel walks the timesteps in a loop and takes any ``S >= 1``.
 
 ``LAUNCHES`` counts the kernel launches.
 """
@@ -28,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.wkv6 import ref
 
-HEAD_DIMS = (32, 64)             # the kernel's instantiations
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128)   # the kernel's instantiations
 
 LAUNCHES: Dict[str, int] = {"wkv6_bh": 0}
 
@@ -68,11 +70,14 @@ def wkv6_bh(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _build.on_cpu(r, k, v, w, u):
         return ref.wkv6_bh_ref(r, k, v, w, u)
     if d not in HEAD_DIMS:
-        raise ValueError(f"wkv6_bh: head dim {d} not in {HEAD_DIMS}")
+        raise ValueError(f"wkv6_bh: head dim {d} not in {HEAD_DIMS}, the "
+                         f"head dims the CUDA kernel is built for")
     for name, a in (("r", r), ("k", k), ("v", v)):
         _build.check(name, a, (bh, s, d), dt)
     _build.check("w", w, (bh, s, d))
     _build.check("u", u, (bh, d))
+    r, k, v, w, u = (a if a.data_ptr() % 16 == 0 else a.clone()
+                     for a in (r, k, v, w, u))
     y = torch.empty_like(r)
     sfin = torch.empty((bh, d, d), dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):

@@ -325,3 +325,26 @@ def test_twin_fold_is_the_transpose_of_patches():
     lhs = torch.sum(tref.patches3x3(x) * d)
     rhs = torch.sum(x * tref.fold3x3(d))
     assert abs(float(lhs - rhs)) < 1e-9
+
+
+@pytest.mark.parametrize("d1", [10, 16, 100, 128, 300])
+def test_fc_fwd_tiling_covers_every_output_once(d1):
+    """The fc forward kernel's grid (ceil(D1/cols), ceil(B/rows), K) with
+    blocks of ``rows`` x ``cols`` outputs of layer 1 (the last tile of
+    each axis ragged) covers every (user, row, column) exactly once, and
+    a tile never exceeds what the kernel holds (16 rows x 16 columns: a
+    thread per two rows of one column, 128 threads)."""
+    for k in (1, 3, 10):
+        for bs in (1, 2, 7, 10, 16, 17, 100, 1000):
+            rows, cols = tknl.fc_fwd_tiling(k, bs, d1)
+            assert 1 <= rows <= tknl.FC_FWD_MAX_ROWS
+            assert 1 <= cols <= tknl.FC_FWD_MAX_COLS
+            assert -(-rows // 2) * cols <= 128
+            hits = np.zeros((k, bs, d1), np.int64)
+            for z in range(k):
+                for y in range(-(-bs // rows)):
+                    for x in range(-(-d1 // cols)):
+                        r0, c0 = y * rows, x * cols
+                        hits[z, r0:min(r0 + rows, bs),
+                             c0:min(c0 + cols, d1)] += 1
+            assert (hits == 1).all(), (k, bs, d1, rows, cols)

@@ -23,8 +23,9 @@ RWKV6-7B's prefill shapes, on masks, ragged lengths, Sq < Sk and every
 head size, within 1e-5 of the largest magnitude at f32 and one bf16 ulp
 (2**-7) at bf16; a reduced prefill must launch one kernel per layer, and
 the card's forward must match the CPU twins (logits, and greedy tokens at
-f32).  The flash kernels and the fc backward give the same bits on every
-run.
+f32).  The flash kernels, WKV6 and the fc forward and backward give the
+same bits on every run; WKV6 runs at every head dim it is built for and
+flash attention past 65 535 rows of B·H.
 
 The hygiene tests run everywhere: the port imports neither JAX, nor the
 JAX package, nor ``msgpack`` (absent on the card's machine), and an entry
@@ -487,6 +488,25 @@ def test_flash_attention_kernel_matches_twin(cuda, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_kernel_takes_more_than_65535_rows(cuda, dtype):
+    """B·H = 65 600 q rows (8200 kv rows, groups of 8) on a short S (72,
+    ragged against the 64-row tiles): past the 65 535 blocks a grid axis
+    other than x may hold, against the twin."""
+    from repro_torch.kernels.flash_attention import kernel as knl, ref
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(cuda).manual_seed(12)
+    q = torch.randn(65600, 72, 32, device=cuda, generator=g).to(dt)
+    k, v = (torch.randn(8200, 72, 32, device=cuda, generator=g).to(dt)
+            for _ in range(2))
+    got = knl.flash_attention_bh(q, k, v, group_size=8)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bh_ref(q, k, v, 8, True, 0)
+    _within(got.float(), want.float(),
+            RTOL if dtype == "f32" else ZOO_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_flash_attention_kernel_is_deterministic(cuda, dtype):
     """Two launches on the same inputs give the same bits: every sum of
     both kernels runs in a fixed order (no atomics)."""
@@ -499,6 +519,63 @@ def test_flash_attention_kernel_is_deterministic(cuda, dtype):
         a = knl.flash_attention_bh(q, k, v, group_size=4, causal=causal)
         b = knl.flash_attention_bh(q, k, v, group_size=4, causal=causal)
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k,bs", [(10, 10), (3, 7), (1, 1000)],
+                         ids=["main-K10-B10", "odd-K3-B7", "eval-K1-B1000"])
+def test_fc_chain_fwd_kernel_is_deterministic_in_one_launch(cuda, k, bs,
+                                                            dtype):
+    """The blocked fc forward at the round's, an odd cohort's and the
+    eval's shapes: within the twin's tolerance, the same bits on two calls
+    (the per-tile counter only picks the block that runs layers 2 and 3,
+    and the kernel leaves it at 0), one launch a call."""
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    params, _ = _cohort(k, bs, 7, cuda)
+    params = _cast(params, dt)
+    flat = torch.relu(torch.randn((k, bs, 784), device=cuda)).to(dt)
+    knl.reset_launches()
+    la, ra = knl.fc_chain_fwd_k(flat, params)
+    lb, rb = knl.fc_chain_fwd_k(flat, params)
+    assert knl.LAUNCHES["fc_chain_fwd_k"] == 2
+    lp, rp = ref.fc_chain_fwd_k(flat, params)
+    for a, b, want in zip((la, *ra), (lb, *rb), (lp, *rp)):
+        assert a.dtype == dt and torch.equal(a, b)
+        _within(a, want, RTOL if dtype == "f32" else BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k,bs,widths", [
+    (2, 3, (30, 20, 12, 5)), (1, 2, (64, 256, 256, 8))],
+    ids=["odd-widths", "wide-fc2"])
+def test_fc_chain_fwd_kernel_other_widths_match_twin(cuda, k, bs, widths,
+                                                     dtype):
+    """Widths off the CNN's: rows of x and W1 that are no whole 16 bytes
+    (staged with cp.async, not the TMA unit) and a ragged column tile; and
+    an fc2 too wide for shared memory (the last block reads W2 from global
+    memory)."""
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    f, d1, d2, d3 = widths
+    g = torch.Generator(cuda).manual_seed(f + d1)
+    params = {}
+    for name, (fin, fout) in (("fc1", (f, d1)), ("fc2", (d1, d2)),
+                              ("fc3", (d2, d3))):
+        params[name] = {
+            "w": (torch.randn(k, fin, fout, device=cuda, generator=g)
+                  * fin ** -0.5).to(dt),
+            "b": (torch.randn(k, fout, device=cuda, generator=g) * 0.1)
+            .to(dt)}
+    flat = torch.relu(torch.randn((k, bs, f), device=cuda,
+                                  generator=g)).to(dt)
+    lk, rk = knl.fc_chain_fwd_k(flat, params)
+    lp, rp = ref.fc_chain_fwd_k(flat, params)
+    for got, want in zip((lk, *rk), (lp, *rp)):
+        assert got.dtype == dt
+        _within(got, want, RTOL if dtype == "f32" else BF16_RTOL)
 
 
 @pytest.mark.cuda
@@ -523,20 +600,26 @@ def test_fc_chain_bwd_kernel_is_deterministic_in_one_launch(cuda, dtype):
             assert torch.equal(ga[layer][leaf], gb[layer][leaf])
 
 
+def _wkv_inputs(bh, s, d, dt, device):
+    g = torch.Generator(device).manual_seed(s + d)
+    r, k, v = (torch.randn(bh, s, d, device=device, generator=g).mul(0.5)
+               .to(dt) for _ in range(3))
+    w = torch.rand(bh, s, d, device=device, generator=g) * 0.4 + 0.55
+    u = torch.randn(bh, d, device=device, generator=g) * 0.1
+    return r, k, v, w, u
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("bh,s,d", [(128, 2048, 64), (16, 77, 32)],
-                         ids=["rwkv6-7b", "ragged-D32"])
+@pytest.mark.parametrize("bh,s,d", [(128, 2048, 64), (16, 77, 32),
+                                    (32, 300, 128), (3, 1, 64)],
+                         ids=["rwkv6-7b", "ragged-D32", "ragged-D128", "S1"])
 def test_wkv6_kernel_matches_twin(cuda, bh, s, d, dtype):
     """r, k, v in the compute dtype, w and u in f32, as the model feeds
     them; y and the final state."""
     from repro_torch.kernels.wkv6 import kernel as knl, ref
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
-    g = torch.Generator(cuda).manual_seed(s + d)
-    r, k, v = (torch.randn(bh, s, d, device=cuda, generator=g).mul(0.5)
-               .to(dt) for _ in range(3))
-    w = torch.rand(bh, s, d, device=cuda, generator=g) * 0.4 + 0.55
-    u = torch.randn(bh, d, device=cuda, generator=g) * 0.1
+    r, k, v, w, u = _wkv_inputs(bh, s, d, dt, cuda)
     y, sf = knl.wkv6_bh(r, k, v, w, u)
     torch.cuda.synchronize()
     yr, sr = ref.wkv6_bh_ref(r, k, v, w, u)
@@ -545,6 +628,49 @@ def test_wkv6_kernel_matches_twin(cuda, bh, s, d, dtype):
     _within(sf, sr, RTOL)
     with pytest.raises(TypeError, match="float32"):
         knl.wkv6_bh(r, k, v, w.to(torch.bfloat16), u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_wkv6_kernel_every_head_dim(cuda, dtype):
+    """Every head dim the kernel is built for, on a ragged S (no multiple
+    of its 16-step chunks) against the twin, inputs that do not start on
+    16 bytes included; any other head dim raises, naming the list."""
+    from repro_torch.kernels.wkv6 import kernel as knl, ref
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    for d in knl.HEAD_DIMS:
+        r, k, v, w, u = _wkv_inputs(5, 45, d, dt, cuda)
+        y, sf = knl.wkv6_bh(r, k, v, w, u)
+        yr, sr = ref.wkv6_bh_ref(r, k, v, w, u)
+        _within(y.float(), yr.float(),
+                RTOL if dtype == "f32" else ZOO_BF16_RTOL)
+        _within(sf, sr, RTOL)
+    r, k, v, w, u = _wkv_inputs(4, 33, 64, dt, cuda)
+    shifted = [torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)[1:]
+               .view(a.shape).copy_(a) for a in (r, k, v, w)]
+    assert all(a.data_ptr() % 16 for a in shifted)
+    y, sf = knl.wkv6_bh(*shifted, u)
+    yr, sr = ref.wkv6_bh_ref(r, k, v, w, u)
+    _within(y.float(), yr.float(), RTOL if dtype == "f32" else ZOO_BF16_RTOL)
+    _within(sf, sr, RTOL)
+    r, k, v, w, u = _wkv_inputs(2, 8, 40, dt, cuda)
+    with pytest.raises(ValueError, match="head dim 40 not in"):
+        knl.wkv6_bh(r, k, v, w, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_wkv6_kernel_is_deterministic_in_one_launch(cuda, dtype):
+    """At RWKV6-7B's prefill shape two calls give the same bits (every sum
+    in a fixed order, no atomics), each one launch."""
+    from repro_torch.kernels.wkv6 import kernel as knl
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    r, k, v, w, u = _wkv_inputs(128, 2048, 64, dt, cuda)
+    knl.reset_launches()
+    ya, sa = knl.wkv6_bh(r, k, v, w, u)
+    yb, sb = knl.wkv6_bh(r, k, v, w, u)
+    assert knl.LAUNCHES["wkv6_bh"] == 2
+    assert torch.equal(ya, yb) and torch.equal(sa, sb)
 
 
 def _zoo_model(name, dtype, device):

@@ -148,8 +148,9 @@ def _wkv_inputs(b, s, h, d, seed):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("b,s,h,d", [(2, 128, 2, 32), (1, 128, 2, 64)],
-                         ids=["D32", "D64"])
+@pytest.mark.parametrize("b,s,h,d", [(2, 128, 2, 32), (1, 128, 2, 64),
+                                     (1, 64, 1, 128)],
+                         ids=["D32", "D64", "D128"])
 def test_wkv6_twin_matches_jax_kernel_and_ref(b, s, h, d, dtype):
     """r, k, v in the compute dtype and w in f32, as the model feeds them
     (``_decay`` returns f32)."""
