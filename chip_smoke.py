@@ -46,10 +46,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    must be identical and params and accuracy close;
 8. the zoo path.  (a) flash attention and WKV6 against their twins at
    Llama-3.2-1B's and RWKV6-7B's prefill shapes (B=2, S=2048; masks,
-   ragged S, Sq < Sk; WKV6 also at D=32 and 128; bf16 and f32), each
-   timed beside its twin, its bound and, for attention,
-   ``scaled_dot_product_attention`` (a yardstick only), with both
-   attentions' TFLOP/s; (b) ``make_prefill_step`` on Llama-3.2-1B as
+   ragged S, Sq < Sk; WKV6 also at D=32 and 128; bf16 and f32), and flash
+   attention at hubert-xlarge's (B=2, 16 q and 16 kv heads, D=80, S=1500
+   frames, non-causal), each timed beside its twin, its bound and, for
+   attention, ``scaled_dot_product_attention`` (a yardstick only), with
+   both attentions' TFLOP/s; (b) ``make_prefill_step`` on Llama-3.2-1B as
    configured and on RWKV6-7B at full width with 4 of its 32 layers, B=2
    x 2048-token prompts, counts reset just before: one kernel launch per
    layer; (c) the kernel path against the cache path (the token loop of
@@ -142,9 +143,9 @@ SOURCES = {**{n: "src/repro_torch/kernels/fused_cnn/csrc/fused_cnn.cu"
 # scratch for the serving phase's checkpoints (git-ignored)
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
 # __global__ launches per wrapper call
-LAUNCHES_PER_CALL = {"conv_pool_fwd_k": 1, "conv_pool_bwd_k": 2,
+LAUNCHES_PER_CALL = {"conv_pool_fwd_k": 1, "conv_pool_bwd_k": 1,
                      "fc_chain_fwd_k": 1, "fc_chain_bwd_k": 1,
-                     "conv_pool_fwd": 1, "conv_pool_bwd": 2,
+                     "conv_pool_fwd": 1, "conv_pool_bwd": 1,
                      "fc_chain_fwd": 1, "fc_chain_bwd": 1}
 
 
@@ -1250,6 +1251,9 @@ ZOO_CPU_BF16_FROB = 0.03
 # the zoo's cells: Llama-3.2-1B as configured, RWKV6-7B at full width with
 # the depth cut to 4 of its 32 layers; prompts of B x S tokens
 ZOO_B, ZOO_S = 2, 2048
+# hubert-xlarge's attention (configs/hubert_xlarge.py): 16 q and 16 kv
+# heads of D=80, bidirectional, over the 1500 frames of 30 s of audio
+HUBERT_S = 1500
 RWKV_LAYERS = 4
 CACHE_PROMPT = 256
 
@@ -1288,7 +1292,8 @@ def check_zoo_kernels(chk: Check, s: int = ZOO_S):
     flash attention at Llama-3.2-1B's prefill (B=2, 32 q / 8 kv heads,
     D=64) causal, with a window of 256, non-causal, and a ragged S causal
     and not, each at bf16 and at f32 (whose tolerance a wrong mask on
-    small rows could not pass), and Sq < Sk; WKV6 at RWKV6-7B's (B=2 x 64
+    small rows could not pass), Sq < Sk, and at hubert-xlarge's (D=80);
+    WKV6 at RWKV6-7B's (B=2 x 64
     heads, D=64) with r/k/v at bf16 and w in f32, and all f32, and at
     ragged S with D=32 and D=128 (y and the final state)."""
     import torch
@@ -1313,7 +1318,13 @@ def check_zoo_kernels(chk: Check, s: int = ZOO_S):
               (ZOO_B, 32, 8, s - 48, s - 48, 64, False, 0, f32)),
              ("Sq=100 < Sk=300 f32", (1, 4, 2, 100, 300, 64, True, 0, f32)),
              ("window 20 < tile, D=32 f32",
-              (2, 4, 2, 128, 128, 32, True, 20, f32))]
+              (2, 4, 2, 128, 128, 32, True, 20, f32)),
+             # hubert-xlarge: D=80 (the bf16 kernel's 128-wide
+             # instantiation), non-causal, S=1500 ragged against every tile
+             ("hubert-xlarge D=80 bf16",
+              (ZOO_B, 16, 16, HUBERT_S, HUBERT_S, 80, False, 0, bf)),
+             ("hubert-xlarge D=80 f32",
+              (ZOO_B, 16, 16, HUBERT_S, HUBERT_S, 80, False, 0, f32))]
     for i, (label, (b, h, kv, sq, sk, d, causal, window, dt)) in \
             enumerate(cases):
         q, k, v = flash_inputs(b, h, kv, sq, sk, d, dt, seed=100 + i)
@@ -1334,6 +1345,37 @@ def check_zoo_kernels(chk: Check, s: int = ZOO_S):
         chk.close("wkv6_bh", f"{label} y", y, yr,
                   rtol=ZOO_BF16_RTOL if dt == bf else KERNEL_RTOL)
         chk.close("wkv6_bh", f"{label} S_final", sf, sr)
+
+
+def time_hubert_flash(dt, tag: str) -> dict:
+    """flash attention at hubert-xlarge's shape (B=2, 16 + 16 heads, D=80,
+    S=1500, non-causal) beside SDPA and its bound: 4 B H S^2 D operations
+    (q.k and p.v over every pair, FMA = 2), 23.3 us in bf16 and 344 us in
+    f32; keys of the kernel's row, prefixed d80_.  Both are timed with
+    CUDA events over back-to-back calls: this late in the process the
+    profiler may keep no record of a session at all."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    h, d, s = 16, 80, HUBERT_S
+    q, k, v = flash_inputs(ZOO_B, h, h, s, s, d, dt, seed=9)
+    o = fk.flash_attention_bh(q, k, v, causal=False)
+    flops = 4.0 * ZOO_B * h * s * s * d
+    rate = BF16_FLOPS_PER_S if tag == "bf16" else F32_FLOPS_PER_S
+    b_ms, by = bound_ms(nbytes(q, k, v, o), flops, rate)
+    qh, kh, vh = (t.reshape(ZOO_B, h, s, d) for t in (q, k, v))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                  iters=20)
+    ms = cuda_ms(lambda: fk.flash_attention_bh(q, k, v, causal=False),
+                 iters=20)
+    print(f"  flash_attention_bh {tag} hubert-xlarge B={ZOO_B} S={s} "
+          f"H=KV={h} D={d} non-causal (CUDA events): kernel "
+          f"{ms * 1e3:9.2f} us  SDPA "
+          f"{lib * 1e3:8.2f} us  bound {b_ms * 1e3:6.2f} us ({by}, "
+          f"{flops / 1e9:.2f} GFLOP); achieved: kernel "
+          f"{flops / ms / 1e9:.1f} TFLOP/s, SDPA {flops / lib / 1e9:.1f} "
+          f"TFLOP/s")
+    return {"d80_ms": ms, "d80_bound_ms": b_ms, "d80_library_ms": lib}
 
 
 def time_zoo_kernels() -> dict:
@@ -1366,7 +1408,7 @@ def time_zoo_kernels() -> dict:
             q, k, v, h // kv), iters=3)
         out[tag] = {"flash_attention_bh": {
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": lib}}
+            "library_ms": lib, **time_hubert_flash(dt, tag)}}
         print(f"  flash_attention_bh {tag} B={ZOO_B} S={ZOO_S} H={h} KV={kv} "
               f"D={d} causal: kernel {ms * 1e3:9.2f} us  twin "
               f"{plain * 1e3:9.2f} us  SDPA {lib * 1e3:8.2f} us  bound "
@@ -1714,6 +1756,10 @@ def main() -> int:
                        f32_plain_ms=tf["plain_ms"],
                        f32_bound_ms=tf["bound_ms"],
                        f32_library_ms=tf["library_ms"])
+            row.update({key: val for key, val in t.items()
+                        if key.startswith("d80_")})
+            row.update({f"f32_{key}": val for key, val in tf.items()
+                        if key.startswith("d80_")})
         if n in timing_bf16:
             tb = timing_bf16[n]
             row.update(bf16_launches=launches_bf16[n], bf16_ms=tb["ms"],

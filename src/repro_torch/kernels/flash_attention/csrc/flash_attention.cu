@@ -38,7 +38,13 @@
 // Tiles are stored as TMA writes them: rows of 64 columns with the
 // 128-byte swizzle (D = 64; D = 128 as two 64-column chunks) or rows of 32
 // with the 64-byte swizzle (D = 32), and every wgmma descriptor names the
-// same swizzle.
+// same swizzle.  D = 80 (hubert-xlarge) runs on the D = 128 instantiation:
+// its tensor maps keep the true 80 columns (rows of 160 bytes), so the
+// second 64-column box reads columns 80-127 as TMA's zero fill; q . k^T
+// adds exact zeros, p . v makes columns 80-127 that are never stored, and
+// the epilogue stores the true 80 at the true row stride.  That is 1.6x
+// the products of a native m64n80 layout, which would need a 64 + 16
+// column split with two swizzle modes.
 // - s = q . k^T: wgmma m64n64k16, bf16 in, f32 accumulators, q and k both
 //   from shared memory, K-major as stored.
 // - Softmax on the accumulator fragment, in base 2 (the scale times
@@ -59,8 +65,9 @@
 //   stored.
 // Heavy (late) causal q tiles of every head run first, and the q heads of
 // one kv head run side by side, so they share its k and v tiles in L2.
-// Registers (ptxas, sm_90a): 95 at D = 32, 115 at D = 64, 147 at D = 128,
-// no spills; chip_smoke.py prints them from the build log.
+// chip_smoke.py prints each instantiation's registers and spills from the
+// build log (CUDA 12.8 for sm_90a: 95 at D = 32, 115 at D = 64, 147 at D =
+// 128 and 146 at D = 80 on it, no spills).
 //
 // f32: flash_fwd_kernel, on the CUDA cores, as the port's first version:
 // TF32 tensor-core products would break its 1e-5 parity with the
@@ -71,7 +78,8 @@
 // 16 x 16 grid: thread (ty, tx) computes the scores of q rows ty + 16 i (i
 // < 4) against keys tx + 16 j (j < 4) as 4 x 4 register tiles with float4
 // reads along D, and holds the output rows ty + 16 i at columns tx * D/16
-// .. + D/16 - 1.  A row's max and sum reduce over the 16 lanes that share
+// .. + D/16 - 1 (D in {32, 64, 80, 128}: at D = 80 five columns a thread,
+// read from v one at a time, and rows of 84 floats in shared memory).  A row's max and sum reduce over the 16 lanes that share
 // ty (xor shuffles, which give every lane the same bits).  p goes through
 // shared memory to the p.v product.  Masked entries get p = 0 exactly.
 //
@@ -273,12 +281,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float4 x = *reinterpret_cast<const float4*>(vrow + c);
             vv[c] = x.x; vv[c + 1] = x.y; vv[c + 2] = x.z; vv[c + 3] = x.w;
           }
-        } else {
+        } else if constexpr (DJ % 2 == 0) {
 #pragma unroll
           for (int c = 0; c < DJ; c += 2) {
             const float2 x = *reinterpret_cast<const float2*>(vrow + c);
             vv[c] = x.x; vv[c + 1] = x.y;
           }
+        } else {
+          // D = 80: 5 columns a thread, 4-byte aligned only
+#pragma unroll
+          for (int c = 0; c < DJ; ++c) vv[c] = vrow[c];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -335,6 +347,9 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int BH,
                            scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, BH, Sq, Sk, group, causal, window,
+                           scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, BH, Sq, Sk, group, causal, window,
                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, BH, Sq, Sk, group, causal, window,
@@ -563,7 +578,9 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t* a,
 // `group` q heads of one kv head run side by side and share its tiles in
 // L2.  Threads [0, 128 NWG): NWG consumer warpgroups of 64 q rows each;
 // the last 32: the producer warp, whose lane 0 issues every TMA load.
-template <int D, int NWG, int MINB>
+// DT: the true head dim of q, k, v and o (their row stride and the
+// columns stored), DT <= D: D = 128 runs DT = 80
+template <int D, int NWG, int MINB, int DT>
 __global__ void __launch_bounds__(128 * NWG + 32, MINB)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -764,9 +781,10 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const float denom = fmaxf(lr, 1e-20f);
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
-    __nv_bfloat16* orow = o + ((long long)bh * Sq + row) * D + c2;
+    // rows of the true head dim DT; columns past it are never stored
+    __nv_bfloat16* orow = o + ((long long)bh * Sq + row) * DT + c2;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DT / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
           pack_bf16(__fdiv_rn(acc[4 * j + 2 * r], denom),
                     __fdiv_rn(acc[4 * j + 2 * r + 1], denom));
@@ -802,13 +820,15 @@ EncodeTiled encode_tiled() {
 }
 
 // (heads, rows, D) bf16 as a 3-D map (D, rows, heads) with boxes of
-// min(D, 64) columns x box_rows x 1 head: rows past `rows` of a head are
-// out of range and read as zeros, never as the next head's rows
-int make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
-             int box_rows) {
+// min(width, 64) columns x box_rows x 1 head, for the kernel instantiated
+// at `width` >= D columns: rows past `rows` of a head, and columns past D
+// (D = 80 on the 128-wide instantiation), are out of range and read as
+// zeros, never as the next row's or head's values
+int make_map(CUtensorMap* map, const void* ptr, int D, int width, int rows,
+             int heads, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const int cw = D < 64 ? D : 64;
+  const int cw = width < 64 ? width : 64;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
@@ -823,21 +843,23 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+// the tensor-core kernel instantiated at D columns for q, k, v and o of
+// DT <= D columns
+template <int D, int DT = D>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int BH,
               int Sq, int Sk, int group, int causal, int window, float scale,
               void* stream) {
   using S = TcShape<D>;
   const auto kernel =
-      &flash_fwd_tc_kernel<D, S::NWG, S::MINB>;
+      &flash_fwd_tc_kernel<D, S::NWG, S::MINB, DT>;
   constexpr int smem = 1024 + (S::NWG * kWG + 2 * kStages * kBK) * D * 2;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, q, D, Sq, BH, kWG);
-  if (!rc) rc = make_map(&tk, k, D, Sk, BH / group, kBK);
-  if (!rc) rc = make_map(&tv, v, D, Sk, BH / group, kBK);
+  int rc = make_map(&tq, q, DT, D, Sq, BH, kWG);
+  if (!rc) rc = make_map(&tk, k, DT, D, Sk, BH / group, kBK);
+  if (!rc) rc = make_map(&tv, v, DT, D, Sk, BH / group, kBK);
   if (rc) return rc;
   const unsigned blocks =
       (unsigned)((Sq + S::NWG * kWG - 1) / (S::NWG * kWG)) * (unsigned)BH;
@@ -857,6 +879,9 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch_tc<64>(q, k, v, o, BH, Sq, Sk, group, causal, window,
                            scale, stream);
+    case 80:   // on the 128-wide layout: TMA zero-fills columns 80..127
+      return launch_tc<128, 80>(q, k, v, o, BH, Sq, Sk, group, causal,
+                                window, scale, stream);
     case 128:
       return launch_tc<128>(q, k, v, o, BH, Sq, Sk, group, causal, window,
                             scale, stream);
@@ -873,8 +898,8 @@ API const char* flash_error_string(int code) {
 
 // q (BH, Sq, D), k and v (BH / group, Sk, D), o (BH, Sq, D), all
 // contiguous, 16-byte aligned, f32 (bf16 = 0: the CUDA-core kernel) or
-// bf16 (bf16 = 1: the tensor-core kernel); D in {32, 64, 128}; 1 <= Sq <=
-// Sk.
+// bf16 (bf16 = 1: the tensor-core kernel); D in {32, 64, 80, 128}; 1 <=
+// Sq <= Sk.
 API int flash_attention_fwd(const void* q, const void* k, const void* v,
                             void* o, int BH, int Sq, int Sk, int D,
                             int group, int causal, int window, float scale,

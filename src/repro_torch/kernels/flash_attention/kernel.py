@@ -16,7 +16,10 @@ dtype picks the CUDA kernel: bf16 runs on the tensor cores (TMA loads,
 on the CUDA cores (64-row tiles, all in f32).  The reference's TPU tile
 sizes (``block_q``, ``block_k``) have no counterpart: both kernels mask a
 ragged tail themselves, so any ``S >= 1`` works (the reference asserts
-``S % block == 0``).
+``S % block == 0``).  The head dim is one of ``HEAD_DIMS``: 32, 64, 80
+and 128 (80, hubert-xlarge's, runs at bf16 on the 128-wide tensor-core
+layout, its extra columns zeros); any other D raises, where the
+reference takes any.
 
 ``LAUNCHES`` counts the kernel launches.
 """
@@ -30,7 +33,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (32, 64, 128)        # the kernel's instantiations
+HEAD_DIMS = (32, 64, 80, 128)    # the head dims both kernels take
 
 LAUNCHES: Dict[str, int] = {"flash_attention_bh": 0}
 

@@ -6,8 +6,7 @@
 // src/repro/kernels/fused_cnn/kernel.py:
 //
 //   conv_pool_fwd_k  (pallas_call at kernel.py:291) -> conv_pool_fwd_kernel
-//   conv_pool_bwd_k  (pallas_call at kernel.py:357) -> conv_bwd_partial_kernel
-//                                                    + conv_bwd_finish_kernel
+//   conv_pool_bwd_k  (pallas_call at kernel.py:357) -> conv_pool_bwd_kernel
 //   fc_chain_fwd_k   (pallas_call at kernel.py:398) -> fc_fwd_kernel
 //   fc_chain_bwd_k   (pallas_call at kernel.py:441) -> fc_bwd_kernel
 //   conv_pool_fwd    (pallas_call at kernel.py:117) \
@@ -25,27 +24,30 @@
 // kernel is bounded by memory traffic (H100 SXM: 3.35 TB/s; a few
 // microseconds each), far from the 67 TFLOP/s f32 peak.  In practice a
 // launch of a few microseconds is dominated by launch latency, and the
-// round by the host loop around its 192 training launches (8 per SGD step;
-// 1920 through the single-user kernels at K=10).  The fc forward and
-// backward are each one launch that spreads a cohort over many SMs
-// (fc_fwd_kernel, fc_bwd_kernel below): layer 1's 784-long sums are
-// sequential chains, so their latency, not the card's rate, bounds them.
+// round by the host loop around its 144 training launches (6 per SGD step,
+// one per kernel call; 1440 through the single-user kernels at K=10).
+// Every kernel is one launch that spreads a cohort over many SMs: the conv
+// forward over bands of image rows, the conv backward over chunks of patch
+// rows, the fc forward and backward over slices of fc1's columns.  Their
+// long sums (layer 1's 784 terms, dW's rows) are sequential chains, so
+// their latency, not the card's rate, bounds them.
 //
 // Design.  The TPU kernels walk a sequential grid over user tiles and keep
 // a whole user's layer in VMEM; here blocks run in parallel in no order, so
 // - every output element is owned by exactly one thread and every sum is
-//   taken in a fixed order: no float atomics (the fc forward's one integer
-//   atomic only picks which block runs its last two layers), results are
-//   identical run to run;
-// - reductions across blocks (dW over B*H*W rows) go through a second
-//   launch over per-block partial sums;
+//   taken in a fixed order: no float atomics (the integer atomics of the
+//   fc forward and the conv backward only pick which block runs the last
+//   step), results are identical run to run;
+// - a reduction across blocks (dW over B*H*W rows) sums per-block partials
+//   in block order in the last block to finish, in the same launch;
 // - the conv product z is summed tap by tap in (i, j, c) order with
 //   __fmul_rn/__fadd_rn, which the compiler never contracts into an FMA.
 //   The plain PyTorch twin (ref.py) sums the same way, so tied pool maxima
 //   (zero backgrounds, constant images) are found identically and the
 //   1/count tie mask agrees bit for bit;
-// - SAME padding is implicit: out-of-range taps are skipped, no padded copy
-//   of the image is made;
+// - SAME padding: the conv forward stages each band of the image with a
+//   zero border in shared memory (a zero tap adds +-0, which changes no
+//   sum of finite values); the backward's gather skips out-of-range taps;
 // - the image gradient dx is a gather (each input pixel sums its 9 taps in
 //   (i, j) order), not the padded-canvas scatter-add of the TPU kernel.
 //
@@ -59,9 +61,10 @@
 // product of two bf16 values is exact in f32, so fmaf and a separate
 // multiply and add agree there.  rnd<float> is the identity, so the f32
 // instantiation rounds nowhere but in its f32 operations.
-// Weights in shared memory take half the bytes at bf16.  FMA code on the
-// CUDA cores (the fc forward stages with TMA); the tensor cores are left
-// for later work.
+// Staged as T, weights take half the shared memory at bf16 (the conv
+// kernels widen their operands to f32 there).  FMA code on the CUDA cores
+// (the fc forward stages with TMA); the tensor cores are left for later
+// work.
 //
 // Interface: plain C functions, bound with ctypes.  Each launches one
 // __global__ function on the given stream and returns cudaGetLastError().
@@ -103,209 +106,6 @@ inline int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// ---------------------------------------------------------------------------
-// conv_pool_fwd: patches + product + 2x2 max pool + bias + ReLU (pool first)
-// x (K,B,H,W,C), w (K,9C,O), bias (K,O) -> a (K,B,H/2,W/2,O);
-// residuals pat (K,B*H*W,9C), eq (K,B,H,W,O), relu_m (K,B,H/2,W/2,O).
-// One thread per pooled output (k, b, ph, pw, o); o is fastest, so the
-// threads of a window share their image reads.  The user's weights sit in
-// shared memory.  grid = (ceil(B*PH*PW*O / 256), K).
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv_pool_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const T* __restrict__ bias, T* __restrict__ a,
-                     T* __restrict__ pat, T* __restrict__ eq,
-                     T* __restrict__ relu_m, int B, int H, int W, int C,
-                     int O, int write_res) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k = blockIdx.y;
-  const int P = 9 * C;
-  T* ws = reinterpret_cast<T*>(smem_raw);  // (P, O)
-  T* bs = ws + P * O;                      // (O,)
-  const T* wk = w + (size_t)k * P * O;
-  for (int i = threadIdx.x; i < P * O; i += blockDim.x) ws[i] = wk[i];
-  for (int i = threadIdx.x; i < O; i += blockDim.x)
-    bs[i] = bias[(size_t)k * O + i];
-  __syncthreads();
-
-  const int PH = H / 2, PW = W / 2;
-  const long long total = (long long)B * PH * PW * O;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int o = (int)(t % O);
-  long long r = t / O;
-  const int pw = (int)(r % PW);
-  r /= PW;
-  const int ph = (int)(r % PH);
-  const int bb = (int)(r / PH);
-  const T* xb = x + ((size_t)k * B + bb) * H * W * C;
-
-  float z[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int yy = 2 * ph + (q >> 1), xx = 2 * pw + (q & 1);
-    float acc = 0.f;
-    for (int i = 0; i < 3; ++i) {
-      const int sy = yy + i - 1;
-      if (sy < 0 || sy >= H) continue;
-      for (int j = 0; j < 3; ++j) {
-        const int sx = xx + j - 1;
-        if (sx < 0 || sx >= W) continue;
-        const T* xp = xb + ((size_t)sy * W + sx) * C;
-        const T* wp = ws + (i * 3 + j) * C * O + o;
-        for (int c = 0; c < C; ++c)
-          acc = __fadd_rn(acc, __fmul_rn(f(xp[c]), f(wp[c * O])));
-      }
-    }
-    z[q] = rnd<T>(acc);
-  }
-  const float pz = fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
-  const float pre = rnd<T>(__fadd_rn(pz, f(bs[o])));
-  const size_t pidx = ((((size_t)k * B + bb) * PH + ph) * PW + pw) * O + o;
-  a[pidx] = to<T>(fmaxf(pre, 0.f));
-  if (!write_res) return;
-  relu_m[pidx] = to<T>(pre > 0.f ? 1.f : 0.f);
-
-  int cnt = 0;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) cnt += z[q] == pz;
-  const float inv = rnd<T>(__fdiv_rn(1.f, (float)cnt));
-  const size_t row0 = (size_t)k * B * H * W + (size_t)bb * H * W;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int yy = 2 * ph + (q >> 1), xx = 2 * pw + (q & 1);
-    eq[(row0 + (size_t)yy * W + xx) * O + o] = to<T>(z[q] == pz ? inv : 0.f);
-  }
-  // the window's 4 patch rows (4*P values), spread over its O threads
-  for (int e = o; e < 4 * P; e += O) {
-    const int q = e / P, p = e % P;
-    const int tap = p / C, c = p % C;
-    const int yy = 2 * ph + (q >> 1), xx = 2 * pw + (q & 1);
-    const int sy = yy + tap / 3 - 1, sx = xx + tap % 3 - 1;
-    const bool in = sy >= 0 && sy < H && sx >= 0 && sx < W;
-    pat[(row0 + (size_t)yy * W + xx) * P + p] =
-        in ? xb[((size_t)sy * W + sx) * C + c] : to<T>(0.f);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// conv_pool_bwd, pass 1: dz = eq * (da * relu_m) upsampled, and per-chunk
-// partial sums of dW = pat^T dz (f32) over R rows of the M = B*H*W patch
-// rows.  grid = (nchunks, K).  dz is also written out for pass 2's dx
-// gather.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv_bwd_partial_kernel(const T* __restrict__ pat, const T* __restrict__ eq,
-                        const T* __restrict__ relu_m,
-                        const T* __restrict__ da, T* __restrict__ dz,
-                        float* __restrict__ part, int B, int H, int W, int C,
-                        int O, int R, int nchunks) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int k = blockIdx.y, chunk = blockIdx.x;
-  const int P = 9 * C, M = B * H * W;
-  const int m0 = chunk * R;
-  const int rows = min(R, M - m0);
-  T* ps = reinterpret_cast<T*>(smem_raw);  // (R, P)
-  T* zs = ps + R * P;                      // (R, O)
-  const T* pk = pat + ((size_t)k * M + m0) * P;
-  for (int i = threadIdx.x; i < rows * P; i += blockDim.x) ps[i] = pk[i];
-  const int PH = H / 2, PW = W / 2;
-  for (int i = threadIdx.x; i < rows * O; i += blockDim.x) {
-    const int o = i % O, m = m0 + i / O;
-    const int xx = m % W, yy = (m / W) % H, bb = m / (H * W);
-    const size_t pi =
-        ((((size_t)k * B + bb) * PH + yy / 2) * PW + xx / 2) * O + o;
-    const float dp = rnd<T>(__fmul_rn(f(da[pi]), f(relu_m[pi])));
-    const size_t zi = ((size_t)k * M + m) * O + o;
-    const T v = to<T>(__fmul_rn(f(eq[zi]), dp));
-    zs[i] = v;
-    dz[zi] = v;
-  }
-  __syncthreads();
-  float* out = part + ((size_t)k * nchunks + chunk) * P * O;
-  for (int idx = threadIdx.x; idx < P * O; idx += blockDim.x) {
-    const int p = idx / O, o = idx % O;
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r)
-      acc = fmaf(f(ps[r * P + p]), f(zs[r * O + o]), acc);
-    out[idx] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// conv_pool_bwd, pass 2.  Blocks [0, K): dW[k] = sum of the chunk partials
-// in chunk order, and db[k] = sum of da*relu_m over the pooled positions
-// (a per-channel strided sum, then a fixed-order sum of the strides), both
-// f32.  Blocks [K, ...): dx gather, one thread per input element
-// (k,b,y,x,c): dx = sum over the 9 taps (i,j) of
-// T(dz[pixel (y+1-i, x+1-j)] . W[(i,j,c), :]), rounding to T after each add.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv_bwd_finish_kernel(const float* __restrict__ part,
-                       const T* __restrict__ dz, const T* __restrict__ da,
-                       const T* __restrict__ relu_m, const T* __restrict__ w,
-                       float* __restrict__ dw, float* __restrict__ db,
-                       T* __restrict__ dx, int K, int B, int H, int W, int C,
-                       int O, int nchunks) {
-  __shared__ float red[kThreads];
-  const int P = 9 * C;
-  if ((int)blockIdx.x < K) {
-    const int k = blockIdx.x;
-    const float* pk = part + (size_t)k * nchunks * P * O;
-    for (int idx = threadIdx.x; idx < P * O; idx += blockDim.x) {
-      float acc = 0.f;
-      for (int c = 0; c < nchunks; ++c)
-        acc = __fadd_rn(acc, pk[(size_t)c * P * O + idx]);
-      dw[(size_t)k * P * O + idx] = acc;
-    }
-    const int G = blockDim.x / O;
-    const int NP = B * (H / 2) * (W / 2);
-    const int o = threadIdx.x % O, g = threadIdx.x / O;
-    float s = 0.f;
-    if (g < G) {
-      for (int p = g; p < NP; p += G) {
-        const size_t i = ((size_t)k * NP + p) * O + o;
-        s = __fadd_rn(s, rnd<T>(__fmul_rn(f(da[i]), f(relu_m[i]))));
-      }
-    }
-    red[threadIdx.x] = s;
-    __syncthreads();
-    if ((int)threadIdx.x < O) {
-      float tot = 0.f;
-      for (int gg = 0; gg < G; ++gg) tot = __fadd_rn(tot, red[gg * O + threadIdx.x]);
-      db[(size_t)k * O + threadIdx.x] = tot;
-    }
-    return;
-  }
-  if (dx == nullptr) return;
-  const long long t = (long long)(blockIdx.x - K) * blockDim.x + threadIdx.x;
-  if (t >= (long long)K * B * H * W * C) return;
-  const int c = (int)(t % C);
-  long long r = t / C;
-  const int xx = (int)(r % W);
-  r /= W;
-  const int yy = (int)(r % H);
-  r /= H;
-  const int bb = (int)(r % B);
-  const int k = (int)(r / B);
-  const size_t M = (size_t)B * H * W;
-  const T* wk = w + (size_t)k * P * O;
-  float acc = 0.f;
-  for (int tap = 0; tap < 9; ++tap) {
-    const int sy = yy + 1 - tap / 3, sx = xx + 1 - tap % 3;
-    if (sy < 0 || sy >= H || sx < 0 || sx >= W) continue;
-    const T* zr = dz + ((size_t)k * M + ((size_t)bb * H + sy) * W + sx) * O;
-    const T* wr = wk + (size_t)(tap * C + c) * O;
-    float d = 0.f;
-    for (int o = 0; o < O; ++o) d = fmaf(f(zr[o]), f(wr[o]), d);
-    acc = rnd<T>(__fadd_rn(acc, rnd<T>(d)));
-  }
-  dx[t] = to<T>(acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -1010,53 +810,775 @@ bool make_map3(CUtensorMap* map, const void* ptr, int d0, int d1, int d2,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-inline unsigned blocks_for(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
+// ---------------------------------------------------------------------------
+// spans between global and shared memory.  A run of n elements is placed in
+// a 16-byte aligned region of shared memory (n + 16 bytes long) at the same
+// offset mod 16 bytes as its global end, so that all of it but a head and a
+// tail of a few elements moves as whole 16-byte pieces.
+// ---------------------------------------------------------------------------
+
+// elements of T between the 16-byte boundary below p and p
+template <typename T>
+__device__ __forceinline__ int phase_of(const T* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) % 16) / (int)sizeof(T);
+}
+
+// start copying src[0, n) to region + phase_of(src) (cp.async for the
+// 16-byte pieces; visible after cp.async.wait_all and a barrier); returns
+// where it lands
+template <typename T>
+__device__ __forceinline__ T* copy_in(T* region, const T* src, int n) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int ph = phase_of(src);
+  T* dst = region + ph;
+  const int head = min(n, (V - ph) % V), nv = (n - head) / V;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  for (int i = threadIdx.x; i < nv; i += blockDim.x)
+    cp_async16(dst + head + i * V, src + head + i * V);
+  for (int i = head + nv * V + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = src[i];
+  return dst;
+}
+
+// start copying src[0, n) to the 16-byte aligned region itself (cp.async
+// where src is 16-byte aligned, else element by element)
+template <typename T>
+__device__ __forceinline__ T* copy_in_aligned(T* region, const T* src,
+                                              int n) {
+  if (phase_of(src)) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) region[i] = src[i];
+    return region;
+  }
+  return copy_in(region, src, n);
+}
+
+// write src[0, n), a span in shared memory at phase_of(dst), to dst:
+// consecutive threads store consecutive 16-byte pieces
+template <typename T>
+__device__ __forceinline__ void store_span(T* __restrict__ dst, const T* src,
+                                           int n) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int head = min(n, (V - phase_of(dst)) % V), nv = (n - head) / V;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) d4[i] = s4[i];
+  for (int i = head + nv * V + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = src[i];
+}
+
+// bytes of a span region: n elements of tsize bytes and 16 to spare, in
+// whole 16 bytes
+__host__ __device__ inline int span_bytes(int n, int tsize) {
+  return (n * tsize + 31) / 16 * 16;
+}
+
+// ---------------------------------------------------------------------------
+// conv_pool_fwd: patches + product + 2x2 max pool + bias + ReLU (pool first)
+// x (K,B,H,W,C), w (K,9C,O), bias (K,O) -> a (K,B,H/2,W/2,O);
+// residuals pat (K,B*H*W,9C), eq (K,B,H,W,O), relu_m (K,B,H/2,W/2,O).
+//
+// A block owns one (user k, image b, band of nph pooled rows); grid =
+// K*B*bands blocks on one axis, bands fastest, 128 to 256 threads.  The
+// launcher picks the bands: whole images where they alone give each SM 4
+// blocks (the eval, K=1 B=1000), else a few pooled rows each (the round:
+// conv1 5 bands of 3 rows, conv2 4 of 2; one user: a row each).  A block
+// stages its input rows with their halo, the user's weights and the bias
+// in shared memory once (cp.async) and spreads the input into f32 planes,
+// one per channel, row parity and column parity, with a zero border: a
+// warp's lanes, neighbouring pooled positions, then read neighbouring
+// words (the next pooled row is HALF = W / 2 + 1 words on).
+// A thread owns one pooled position and OT output channels: its 4 x OT
+// sums z run tap by tap in (i, j, c) order with __fmul_rn/__fadd_rn, the
+// weights of a tap read once for all four (one read that a warp shares).
+// OT = 4 for whole images (fewer shared-memory reads a product), 2 for
+// conv2's bands (twice the threads on a band, half the chain each).  A
+// zero border tap adds x*w = +-0, which leaves every sum as skipping it
+// did (a sum that starts at +0 is never -0) for finite weights.  C and O
+// are compile-time for the paper's two layers, (1, 8) and (8, 16), so the
+// tap and channel loops unroll; any other (C, O) runs the runtime-shape
+// instantiation (CC = OO = 0, OT = 1).
+//
+// The band's pat, eq, a and relu_m rows are each one contiguous span of
+// global memory, written as 16-byte pieces by consecutive threads: pat
+// first, so its stores are in flight during the product (conv2: straight
+// from the staged rows, a tap's 8 channels being whole pieces; conv1:
+// built in shared memory first), then eq, a and relu_m, built in shared
+// memory by the product's epilogue.  With write_res = 0 (the eval) only a
+// is built and written.
+// ---------------------------------------------------------------------------
+
+// the shared-memory regions of conv_pool_fwd_kernel, in bytes from a
+// 16-byte aligned base
+struct ConvFwdSmem {
+  int raw, xs, w, b, a, relu, eq, pat, total;
+  __host__ __device__ ConvFwdSmem(int nph, int W, int C, int O, int tsize,
+                                  int res) {
+    const int tr = 2 * nph + 2;
+    raw = 0;
+    xs = raw + span_bytes(tr * W * C, tsize);
+    w = xs + (tr * (W + 2) * C * 4 + 15) / 16 * 16;
+    b = w + span_bytes(9 * C * O, tsize);
+    a = b + span_bytes(O, tsize);
+    relu = a + span_bytes(nph * (W / 2) * O, tsize);
+    eq = relu + (res ? span_bytes(nph * (W / 2) * O, tsize) : 0);
+    pat = eq + (res ? span_bytes(2 * nph * W * O, tsize) : 0);
+    total = pat + (res ? span_bytes(2 * nph * W * 9 * C, tsize) : 0);
+  }
+};
+
+// two consecutive elements widened to f32 (8-byte aligned at f32, 4 at
+// bf16)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename T, int CC, int OO, int OT>
+__global__ void __launch_bounds__(kThreads)
+conv_pool_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const T* __restrict__ bias, T* __restrict__ a,
+                     T* __restrict__ pat, T* __restrict__ eq,
+                     T* __restrict__ relu_m, int B, int H, int W, int Crt,
+                     int Ort, int nph, int nbands, int write_res) {
+  static_assert(OO % OT == 0, "O in whole groups of OT");
+  const int C = CC ? CC : Crt, O = OO ? OO : Ort;
+  const int P = 9 * C, PH = H / 2, PW = W / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ConvFwdSmem L(nph, W, C, O, (int)sizeof(T), write_res);
+  const int img = blockIdx.x / nbands;  // k * B + b
+  const int ph0 = (blockIdx.x % nbands) * nph;
+  const int k = img / B;
+  const int rows = min(nph, PH - ph0);  // pooled rows of the band
+  // the input tile: TR = 2 NR rows from image row y0, columns -1 .. W
+  // (zeros outside the image); rows [ylo, yhi) come from x
+  const int NR = nph + 1, TR = 2 * NR, HALF = PW + 1;
+  const int y0 = 2 * ph0 - 1;
+  const int ylo = max(y0, 0), yhi = min(2 * (ph0 + rows) + 1, H);
+
+  const T* xr =
+      copy_in(reinterpret_cast<T*>(smem_raw + L.raw),
+              x + ((size_t)img * H + ylo) * W * C, (yhi - ylo) * W * C);
+  const T* ws = copy_in_aligned(reinterpret_cast<T*>(smem_raw + L.w),
+                                w + (size_t)k * P * O, P * O);
+  const T* bs = copy_in_aligned(reinterpret_cast<T*>(smem_raw + L.b),
+                                bias + (size_t)k * O, O);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // the planes: value (c, tile row tr, padded column pc) at
+  // xs[(((c * 2 + tr % 2) * 2 + pc % 2) * NR + tr / 2) * HALF + pc / 2]
+  float* xs = reinterpret_cast<float*>(smem_raw + L.xs);
+  const int W2 = W + 2;
+  for (int e = threadIdx.x; e < TR * W2; e += blockDim.x) {  // a pixel each
+    const int tr = e / W2, pc = e - tr * W2;
+    const int y = y0 + tr, xx = pc - 1;
+    const bool in = y >= ylo && y < yhi && xx >= 0 && xx < W;
+    const T* src = xr + ((y - ylo) * W + xx) * C;
+    float* dst = xs + (((tr & 1) * 2 + (pc & 1)) * NR + (tr >> 1)) * HALF +
+                 (pc >> 1);
+    if (CC % 4 == 0 && CC > 0 && phase_of(xr) == 0) {
+      // a pixel's channels as 4-wide reads (whole pixels of 4 channels
+      // from a 16-byte aligned first row)
+#pragma unroll
+      for (int c = 0; c < C; c += 4) {
+        const float4 v =
+            in ? load4(src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+        dst[c * 4 * NR * HALF] = v.x;
+        dst[(c + 1) * 4 * NR * HALF] = v.y;
+        dst[(c + 2) * 4 * NR * HALF] = v.z;
+        dst[(c + 3) * 4 * NR * HALF] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        dst[c * 4 * NR * HALF] = in ? f(src[c]) : 0.f;
+    }
+  }
+
+  const size_t pooled0 = ((size_t)img * PH + ph0) * PW * O;
+  T* ag = a + pooled0;
+  T* a_s = reinterpret_cast<T*>(smem_raw + L.a) + phase_of(ag);
+  T *rg = nullptr, *r_s = nullptr, *eg = nullptr, *e_s = nullptr;
+  if (write_res) {
+    rg = relu_m + pooled0;
+    r_s = reinterpret_cast<T*>(smem_raw + L.relu) + phase_of(rg);
+    eg = eq + ((size_t)img * H + 2 * ph0) * W * O;
+    e_s = reinterpret_cast<T*>(smem_raw + L.eq) + phase_of(eg);
+    // the band's patch rows (yl, xx): 9C values, taps in (i, j) order,
+    // channels inside, copied from the staged rows and in flight during
+    // the product.  Where a tap's C channels are whole 16-byte pieces
+    // (conv2), consecutive threads store consecutive pieces straight from
+    // the staged rows; else (conv1's one channel) the rows are built in
+    // shared memory first
+    T* pg = pat + ((size_t)img * H + 2 * ph0) * W * P;
+    constexpr int V = 16 / (int)sizeof(T);
+    if (C % V == 0 && phase_of(xr) == 0 && phase_of(pg) == 0) {
+      const int CV = C / V;
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      const uint4* xv = reinterpret_cast<const uint4*>(xr);
+      uint4* pv = reinterpret_cast<uint4*>(pg);
+      for (int yl = 0; yl < 2 * rows; ++yl)
+        for (int u = threadIdx.x; u < W * 9 * CV; u += blockDim.x) {
+          const int t = u / CV, cv = u - t * CV;
+          const int xx = t / 9, tap = t - xx * 9;
+          const int y = 2 * ph0 + yl + tap / 3 - 1, x1 = xx + tap % 3 - 1;
+          pv[yl * W * 9 * CV + u] =
+              y >= ylo && y < yhi && x1 >= 0 && x1 < W
+                  ? xv[((y - ylo) * W + x1) * CV + cv]
+                  : zero;
+        }
+      __syncthreads();
+    } else {
+      T* p_s = reinterpret_cast<T*>(smem_raw + L.pat) + phase_of(pg);
+      for (int yl = 0; yl < 2 * rows; ++yl)
+        for (int t = threadIdx.x; t < W * 9; t += blockDim.x) {
+          const int xx = t / 9, tap = t - xx * 9;
+          const int y = 2 * ph0 + yl + tap / 3 - 1, x1 = xx + tap % 3 - 1;
+          const bool in = y >= ylo && y < yhi && x1 >= 0 && x1 < W;
+          const T* src = xr + ((y - ylo) * W + x1) * C;
+          T* dst = p_s + (yl * W * 9 + t) * C;
+#pragma unroll
+          for (int c = 0; c < C; ++c) dst[c] = in ? src[c] : to<T>(0.f);
+        }
+      __syncthreads();
+      store_span(pg, p_s, 2 * rows * W * P);
+    }
+  } else {
+    __syncthreads();
+  }
+
+  const int NPIX = rows * PW;
+  for (int t = threadIdx.x; t < (O / OT) * NPIX; t += blockDim.x) {
+    const int g = t / NPIX, p = t - g * NPIX;
+    const int phl = p / PW, pw = p - phl * PW;
+    const float* xb = xs + phl * HALF + pw;  // tile row 2 phl, col 2 pw
+    const T* wg = ws + g * OT;
+    float acc[4][OT];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int u = 0; u < OT; ++u) acc[q][u] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const T* wt = wg + ((i * 3 + j) * C + c) * O;
+          float wv[OT];
+          if constexpr (OT == 4) {
+            const float4 v = load4(wt);
+            wv[0] = v.x; wv[1] = v.y; wv[2] = v.z; wv[3] = v.w;
+          } else if constexpr (OT == 2) {
+            const float2 v = load2(wt);
+            wv[0] = v.x; wv[1] = v.y;
+          } else {
+            wv[0] = f(wt[0]);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int rr = (q >> 1) + i, cc = (q & 1) + j;
+            const float xv =
+                xb[(((c * 2 + (rr & 1)) * 2 + (cc & 1)) * NR + (rr >> 1)) *
+                       HALF +
+                   (cc >> 1)];
+#pragma unroll
+            for (int u = 0; u < OT; ++u)
+              acc[q][u] = __fadd_rn(acc[q][u], __fmul_rn(xv, wv[u]));
+          }
+        }
+#pragma unroll
+    for (int u = 0; u < OT; ++u) {
+      const int o = g * OT + u;
+      float z[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) z[q] = rnd<T>(acc[q][u]);
+      const float pz = fmaxf(fmaxf(z[0], z[1]), fmaxf(z[2], z[3]));
+      const float pre = rnd<T>(__fadd_rn(pz, f(bs[o])));
+      a_s[p * O + o] = to<T>(fmaxf(pre, 0.f));
+      if (!write_res) continue;
+      r_s[p * O + o] = to<T>(pre > 0.f ? 1.f : 0.f);
+      int cnt = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) cnt += z[q] == pz;
+      const float inv = rnd<T>(__fdiv_rn(1.f, (float)cnt));
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        e_s[((2 * phl + (q >> 1)) * W + 2 * pw + (q & 1)) * O + o] =
+            to<T>(z[q] == pz ? inv : 0.f);
+    }
+  }
+  __syncthreads();
+  store_span(ag, a_s, NPIX * O);
+  if (write_res) {
+    store_span(rg, r_s, NPIX * O);
+    store_span(eg, e_s, 2 * rows * W * O);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// conv_pool_bwd, one launch: dz = eq * (da * relu_m) upsampled, dW = pat^T
+// dz (f32), db = sum of da * relu_m (f32), dx = the 9-tap gather of dz W^T.
+// grid = (nchunks + 1 padded to whole clusters, K), 256 threads.  Block
+// (c, k), c < nchunks, owns the R patch rows [c R, c R + R) of user k's
+// M = B*H*W (R, from the wrapper, and the chunk boundaries fix dW's
+// summation order, and so its bits):
+// - it copies its rows' patches, and the eq, da and relu_m rows that dz
+//   needs for its rows and, for dx, for the W + 1 rows on either side that
+//   its gather reads, into shared memory at once (cp.async: one round trip
+//   to memory), and computes dz there (dz is elementwise in eq, da and
+//   relu_m): no dz in global memory;
+// - it writes its dW partial (f32, rows in order, one fmaf a row) and its
+//   rows of dx (the nine taps in (i, j) order, o in order, rounding to T
+//   after each tap's add);
+// - the block that counts user k's last partial (a counter per user in
+//   global memory, which that block sets back to 0) sums the nchunks
+//   partials in chunk order for dW: where dW is wide (conv2's 1152
+//   columns, 143 KB of partials), the 8 blocks of its thread-block
+//   cluster, co-scheduled, each a share of the columns; its loads 32 at a
+//   time ahead of the adds.
+// Block nchunks computes db, beside them: G = 256 / O strided group sums,
+// then the groups in order (G fixes db's summation order).  No float
+// atomics: the same bits on every run (the counter only picks which block
+// finishes).
+// ---------------------------------------------------------------------------
+
+// the shared-memory regions of conv_pool_bwd_kernel, in bytes from a
+// 16-byte aligned base.  L: the dz rows (the chunk's R and, with dx, W + 1
+// on either side); NPR: the pooled rows that cover them
+struct ConvBwdSmem {
+  int ps, eq, da, rm, w, zs, wf, poff, total;
+  __host__ __device__ ConvBwdSmem(int R, int W, int C, int O, int tsize,
+                                  int dx) {
+    const int L = R + (dx ? 2 * (W + 1) : 0);
+    const int npr = (L + W - 1) / W / 2 + 2;
+    const int lw = O % 4 ? O : O + 4;  // padded rows of the f32 weights
+    ps = 0;
+    eq = ps + span_bytes(R * 9 * C, tsize);
+    da = eq + span_bytes(L * O, tsize);
+    rm = da + span_bytes(npr * (W / 2) * O, tsize);
+    w = rm + span_bytes(npr * (W / 2) * O, tsize);
+    zs = w + (dx ? span_bytes(9 * C * O, tsize) : 0);
+    wf = zs + (L * O * 4 + 15) / 16 * 16;
+    poff = wf + (dx ? (9 * C * lw * 4 + 15) / 16 * 16 : 0);
+    total = poff + (L * 4 + 15) / 16 * 16;
+  }
+};
+
+constexpr int kBatch = 32;  // loads ahead of the adds in a chain
+// conv backward blocks a cluster where dW is wide (conv2's 1152 columns:
+// its 143 KB of partials through eight SMs, not one); else one
+constexpr int kCluster = 8;
+constexpr int kClusterMinCols = 512;
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ int cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// every thread of every block of the cluster: memory operations before it
+// are visible to the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the int at p in the shared memory of block `rank` of the cluster
+__device__ __forceinline__ int ld_cluster(const int* p, int rank) {
+  unsigned remote;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// db of user k (block nchunks of the launch, beside the chunk blocks): a
+// thread a group chain (group g of channel o sums T(da * relu_m) over the
+// pooled positions g, g + G, ... in order, G = 256 / O), then the G group
+// sums of each channel in order
+template <typename T>
+__device__ __forceinline__ void conv_db(const T* __restrict__ da,
+                                        const T* __restrict__ relu_m,
+                                        float* __restrict__ db, float* red,
+                                        int k, int NP, int O) {
+  const int G = kThreads / O, t = threadIdx.x;
+  const size_t pk = (size_t)k * NP * O;
+  float s = 0.f;
+  if (t < G * O) {
+    const int g = t / O, o = t - g * O;
+    for (int p0 = g; p0 < NP; p0 += kBatch * G) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int p = p0 + u * G;
+        const size_t i = pk + (size_t)p * O + o;
+        v[u] = p < NP ? rnd<T>(__fmul_rn(f(da[i]), f(relu_m[i]))) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (p0 + u * G < NP) s = __fadd_rn(s, v[u]);
+    }
+  }
+  red[t] = s;
+  __syncthreads();
+  if (t < O) {
+    float tot = 0.f;
+    for (int g = 0; g < G; ++g) tot = __fadd_rn(tot, red[g * O + t]);
+    db[(size_t)k * O + t] = tot;
+  }
+}
+
+// the work of chunk block (chunk, k) of conv_pool_bwd_kernel: dz, its dW
+// partial and its rows of dx
+template <typename T, int CC, int OO>
+__device__ __forceinline__ void conv_bwd_chunk(
+    const T* __restrict__ pat, const T* __restrict__ eq,
+    const T* __restrict__ relu_m, const T* __restrict__ da,
+    const T* __restrict__ w, float* __restrict__ part, T* __restrict__ dx,
+    unsigned char* smem_raw, const ConvBwdSmem& L, int k, int chunk, int B,
+    int H, int W, int Crt, int Ort, int R, int nchunks) {
+  constexpr bool V4 = OO % 4 == 0 && OO > 0;  // dz and W rows as float4s
+  constexpr int OB = OO % 8 == 0 && OO >= 16 ? 8 : 1;  // dW columns a thread
+  const int C = CC ? CC : Crt, O = OO ? OO : Ort;
+  const int P = 9 * C, M = B * H * W, PH = H / 2, PW = W / 2;
+  const int NP = B * PH * PW, LW = O % 4 ? O : O + 4;
+  const int m0 = chunk * R, rows = min(R, M - m0);
+  const bool want_dx = dx != nullptr;
+  const int halo = want_dx ? W + 1 : 0;
+  const int mlo = max(0, m0 - halo), mhi = min(M, m0 + rows + halo);
+  // pooled rows pr0 .. pr1 cover image rows mlo / W .. (mhi - 1) / W (a
+  // pooled row is an image row / 2 across the images: H is even)
+  const int pr0 = mlo / W / 2, pr1 = (mhi - 1) / W / 2;
+  const size_t pk = (size_t)k * NP * O;
+
+  const T* ps = copy_in(reinterpret_cast<T*>(smem_raw + L.ps),
+                        pat + ((size_t)k * M + m0) * P, rows * P);
+  const T* eqs = copy_in(reinterpret_cast<T*>(smem_raw + L.eq),
+                         eq + ((size_t)k * M + mlo) * O, (mhi - mlo) * O);
+  const int npool = (pr1 - pr0 + 1) * PW * O;
+  const T* das = copy_in(reinterpret_cast<T*>(smem_raw + L.da),
+                         da + pk + (size_t)pr0 * PW * O, npool);
+  const T* rms = copy_in(reinterpret_cast<T*>(smem_raw + L.rm),
+                         relu_m + pk + (size_t)pr0 * PW * O, npool);
+  const T* wr = want_dx ? copy_in(reinterpret_cast<T*>(smem_raw + L.w),
+                                  w + (size_t)k * P * O, P * O)
+                        : nullptr;
+  // each dz row's pooled offset into das / rms
+  int* poff = reinterpret_cast<int*>(smem_raw + L.poff);
+  for (int r = threadIdx.x; r < mhi - mlo; r += blockDim.x) {
+    const int m = mlo + r, t = m / W;
+    poff[r] = ((t / 2 - pr0) * PW + (m - t * W) / 2) * O;
+  }
+
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // dz of rows [mlo, mhi) as f32 (the T value), and the weights widened
+  float* zs = reinterpret_cast<float*>(smem_raw + L.zs);
+  for (int e = threadIdx.x; e < (mhi - mlo) * O; e += blockDim.x) {
+    const int r = e / O, o = e - r * O, pi = poff[r] + o;
+    const float dp = rnd<T>(__fmul_rn(f(das[pi]), f(rms[pi])));
+    zs[e] = rnd<T>(__fmul_rn(f(eqs[e]), dp));
+  }
+  float* wsm = reinterpret_cast<float*>(smem_raw + L.wf);  // (P, LW)
+  if (want_dx)
+    for (int e = threadIdx.x; e < P * O; e += blockDim.x) {
+      const int p = e / O;
+      wsm[p * LW + e - p * O] = f(wr[e]);
+    }
+  __syncthreads();
+
+  // dW partial: pat^T dz over the chunk's rows in order, OB columns a thread
+  float* out = part + ((size_t)k * nchunks + chunk) * P * O;
+  const float* zc = zs + (m0 - mlo) * O;
+  for (int t = threadIdx.x; t < P * (O / OB); t += blockDim.x) {
+    const int p = t % P, o0 = t / P * OB;
+    float acc[OB];
+#pragma unroll
+    for (int u = 0; u < OB; ++u) acc[u] = 0.f;
+    int r = 0;
+    if constexpr (OB == 1) {
+      // one chain a thread: its operands 16 rows ahead of the FMAs
+      for (; r + 16 <= rows; r += 16) {
+        float pv[16], zv[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) {
+          pv[u] = f(ps[(r + u) * P + p]);
+          zv[u] = zc[(r + u) * O + o0];
+        }
+#pragma unroll
+        for (int u = 0; u < 16; ++u) acc[0] = fmaf(pv[u], zv[u], acc[0]);
+      }
+    }
+#pragma unroll 4
+    for (; r < rows; ++r) {
+      const float pv = f(ps[r * P + p]);
+      const float* zr = zc + r * O + o0;
+      if constexpr (OB == 8) {
+        const float4 z0 = *reinterpret_cast<const float4*>(zr);
+        const float4 z1 = *reinterpret_cast<const float4*>(zr + 4);
+        acc[0] = fmaf(pv, z0.x, acc[0]);
+        acc[1] = fmaf(pv, z0.y, acc[1]);
+        acc[2] = fmaf(pv, z0.z, acc[2]);
+        acc[3] = fmaf(pv, z0.w, acc[3]);
+        acc[4] = fmaf(pv, z1.x, acc[4]);
+        acc[5] = fmaf(pv, z1.y, acc[5]);
+        acc[6] = fmaf(pv, z1.z, acc[6]);
+        acc[7] = fmaf(pv, z1.w, acc[7]);
+      } else {
+        acc[0] = fmaf(pv, zr[0], acc[0]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < OB; ++u) out[p * O + o0 + u] = acc[u];
+  }
+
+  // dx of the chunk's rows: element (m, c) gathers the nine taps
+  if (want_dx) {
+    for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
+      const int r = e / C, c = e - r * C, m = m0 + r;
+      const int t = m / W, xx = m - t * W, yy = t - t / H * H;
+      float acc = 0.f;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int i = tap / 3, j = tap % 3;
+        const int sy = yy + 1 - i, sx = xx + 1 - j;
+        if (sy < 0 || sy >= H || sx < 0 || sx >= W) continue;
+        const float* zr = zs + (m + (1 - i) * W + (1 - j) - mlo) * O;
+        const float* wt = wsm + (tap * C + c) * LW;
+        float d = 0.f;
+        if constexpr (V4) {
+#pragma unroll
+          for (int o = 0; o < O; o += 4) {
+            const float4 zv = *reinterpret_cast<const float4*>(zr + o);
+            const float4 wv = *reinterpret_cast<const float4*>(wt + o);
+            d = fmaf(zv.x, wv.x, d);
+            d = fmaf(zv.y, wv.y, d);
+            d = fmaf(zv.z, wv.z, d);
+            d = fmaf(zv.w, wv.w, d);
+          }
+        } else {
+          for (int o = 0; o < O; ++o) d = fmaf(zr[o], wt[o], d);
+        }
+        acc = rnd<T>(__fadd_rn(acc, rnd<T>(d)));
+      }
+      dx[((size_t)k * M + m) * C + c] = to<T>(acc);
+    }
+  }
+
+}
+
+template <typename T, int CC, int OO>
+__global__ void __launch_bounds__(kThreads, 3)
+conv_pool_bwd_kernel(const T* __restrict__ pat, const T* __restrict__ eq,
+                     const T* __restrict__ relu_m, const T* __restrict__ da,
+                     const T* __restrict__ w, float* __restrict__ part,
+                     int* __restrict__ counters, float* __restrict__ dw,
+                     float* __restrict__ db, T* __restrict__ dx, int B, int H,
+                     int W, int Crt, int Ort, int R, int nchunks) {
+  const int C = CC ? CC : Crt, O = OO ? OO : Ort;
+  const int P = 9 * C, NP = B * (H / 2) * (W / 2);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last, fin;  // counted user k's last partial; finishes dW
+  if (threadIdx.x == 0) last = 0;
+  const int k = blockIdx.y, chunk = blockIdx.x;
+  const ConvBwdSmem L(R, W, C, O, (int)sizeof(T), dx != nullptr);
+  if (chunk == nchunks)
+    conv_db(da, relu_m, db, reinterpret_cast<float*>(smem_raw), k, NP, O);
+  if (chunk < nchunks) {
+    conv_bwd_chunk<T, CC, OO>(pat, eq, relu_m, da, w, part, dx, smem_raw, L,
+                              k, chunk, B, H, W, Crt, Ort, R, nchunks);
+    // the partial is counted: every thread's stores are published by its
+    // fence before the barrier, and the block that counts the last
+    // partial fences again
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      last = atomicAdd(counters + k, 1) == nchunks - 1;
+      if (last) __threadfence();
+    }
+  }
+
+  // the cluster of the block that counted the last partial finishes dW,
+  // its blocks a share of the columns each: every block's `last` is read
+  // across the cluster (distributed shared memory) between two cluster
+  // barriers, and the finishing blocks fence before they read the
+  // partials (through L2)
+  const int ncl = cluster_size();
+  if (ncl == 1) {
+    __syncthreads();
+    if (!last) return;
+  } else {
+    cluster_sync();
+    if (threadIdx.x == 0) {
+      int any = 0;
+      for (int r = 0; r < ncl; ++r) any |= ld_cluster(&last, r);
+      fin = any;
+    }
+    cluster_sync();
+    if (!fin) return;
+    __threadfence();
+  }
+
+  // dW: every chunk's partial summed in chunk order, a thread a column,
+  // 32 loads ahead of the adds (a share is at most 256 columns where dW
+  // is wide, so one round trip to L2)
+  const int PO = P * O;
+  const int share = (PO + ncl - 1) / ncl;
+  const int c0 = cluster_rank() * share, c1 = min(PO, c0 + share);
+  const float* pu = part + (size_t)k * nchunks * PO;
+  for (int i = c0 + threadIdx.x; i < c1; i += blockDim.x) {
+    float s = 0.f;
+    for (int b0 = 0; b0 < nchunks; b0 += kBatch) {
+      float v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        v[u] = b0 + u < nchunks ? __ldcg(pu + (size_t)(b0 + u) * PO + i) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (b0 + u < nchunks) s = __fadd_rn(s, v[u]);
+    }
+    dw[(size_t)k * PO + i] = s;
+  }
+  if (last && threadIdx.x == 0) counters[k] = 0;
 }
 
 // ---------------------------------------------------------------------------
 // host-side launchers, one per __global__ function and compute type
 // ---------------------------------------------------------------------------
+// the SMs of the current device (132 on an H100 SXM)
+inline int sm_count() {
+  int dev = 0, nsm = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  return nsm;
+}
+
+template <typename T, int CC, int OO, int OT>
+int conv_fwd_run(const void* x, const void* w, const void* b, void* a,
+                 void* pat, void* eq, void* relu_m, int B, int H, int W,
+                 int C, int O, int nph, int bands, long long blocks,
+                 size_t smem, int write_res, void* stream) {
+  const auto kernel = conv_pool_fwd_kernel<T, CC, OO, OT>;
+  int rc = set_smem((const void*)kernel, smem);
+  if (rc) return rc;
+  // a thread per (pooled position, OT channels) of a band, 128 to 256
+  // (the copies want the threads)
+  const int items = O / OT * nph * (W / 2);
+  const int threads =
+      std::min(kThreads, std::max(128, (items + 31) / 32 * 32));
+  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w, (const T*)b, (T*)a, (T*)pat, (T*)eq,
+      (T*)relu_m, B, H, W, C, O, nph, bands, write_res);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int CC, int OO>
+int conv_fwd_launch(const void* x, const void* w, const void* b, void* a,
+                    void* pat, void* eq, void* relu_m, int K, int B, int H,
+                    int W, int C, int O, int write_res, void* stream) {
+  // bands of nph pooled rows: whole images where there are enough of them
+  // to give each SM 4 blocks (the eval's B = 1000), else as many bands as
+  // that takes (the round's 100 images: 5 of conv1's 14 rows, 4 of
+  // conv2's 7; one user's 10: a band a row)
+  const int PH = H / 2, images = K * B;
+  int bands =
+      std::min(PH, std::max(1, (4 * sm_count() + images - 1) / images));
+  const int nph = (PH + bands - 1) / bands;
+  bands = (PH + nph - 1) / nph;
+  const long long blocks = (long long)images * bands;
+  const size_t smem =
+      ConvFwdSmem(nph, W, C, O, (int)sizeof(T), write_res).total;
+  if (smem > 227 * 1024 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (OO == 16)
+    if (bands > 1)
+      return conv_fwd_run<T, CC, OO, 2>(x, w, b, a, pat, eq, relu_m, B, H,
+                                        W, C, O, nph, bands, blocks, smem,
+                                        write_res, stream);
+  return conv_fwd_run<T, CC, OO, OO ? 4 : 1>(x, w, b, a, pat, eq, relu_m, B,
+                                             H, W, C, O, nph, bands, blocks,
+                                             smem, write_res, stream);
+}
+
 template <typename T>
 int conv_pool_fwd(const void* x, const void* w, const void* b, void* a,
                   void* pat, void* eq, void* relu_m, int K, int B, int H,
                   int W, int C, int O, int write_res, void* stream) {
-  const size_t smem = (size_t)(9 * C * O + O) * sizeof(T);
-  int rc = set_smem((const void*)conv_pool_fwd_kernel<T>, smem);
+  if (C == 1 && O == 8)
+    return conv_fwd_launch<T, 1, 8>(x, w, b, a, pat, eq, relu_m, K, B, H, W,
+                                    C, O, write_res, stream);
+  if (C == 8 && O == 16)
+    return conv_fwd_launch<T, 8, 16>(x, w, b, a, pat, eq, relu_m, K, B, H,
+                                     W, C, O, write_res, stream);
+  return conv_fwd_launch<T, 0, 0>(x, w, b, a, pat, eq, relu_m, K, B, H, W, C,
+                                  O, write_res, stream);
+}
+
+template <typename T, int CC, int OO>
+int conv_bwd_launch(const void* pat, const void* eq, const void* relu_m,
+                    const void* da, const void* w, float* part,
+                    int* counters, float* dw, float* db, void* dx, int K,
+                    int B, int H, int W, int C, int O, int R, int nchunks,
+                    void* stream) {
+  const size_t smem =
+      ConvBwdSmem(R, W, C, O, (int)sizeof(T), dx != nullptr).total;
+  if (smem > 227 * 1024 || O > kThreads || K > 65535 || nchunks < 1)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = conv_pool_bwd_kernel<T, CC, OO>;
+  int rc = set_smem((const void*)kernel, smem);
   if (rc) return rc;
-  dim3 grid(blocks_for((long long)B * (H / 2) * (W / 2) * O, kThreads), K);
-  conv_pool_fwd_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w, (const T*)b, (T*)a, (T*)pat, (T*)eq,
-      (T*)relu_m, B, H, W, C, O, write_res);
-  return (int)cudaGetLastError();
+  // the nchunks chunk blocks of each user and its db block, padded to
+  // whole clusters
+  const unsigned ncl = 9 * C * O >= kClusterMinCols ? kCluster : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((nchunks + ncl) / ncl * ncl, K);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, (const T*)pat, (const T*)eq, (const T*)relu_m,
+      (const T*)da, (const T*)w, part, counters, dw, db, (T*)dx, B, H, W, C,
+      O, R, nchunks);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <typename T>
-int conv_bwd_partial(const void* pat, const void* eq, const void* relu_m,
-                     const void* da, void* dz, float* part, int K, int B,
-                     int H, int W, int C, int O, int R, int nchunks,
-                     void* stream) {
-  const size_t smem = (size_t)R * (9 * C + O) * sizeof(T);
-  int rc = set_smem((const void*)conv_bwd_partial_kernel<T>, smem);
-  if (rc) return rc;
-  dim3 grid(nchunks, K);
-  conv_bwd_partial_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)pat, (const T*)eq, (const T*)relu_m, (const T*)da, (T*)dz,
-      part, B, H, W, C, O, R, nchunks);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int conv_bwd_finish(const float* part, const void* dz, const void* da,
-                    const void* relu_m, const void* w, float* dw, float* db,
-                    void* dx, int K, int B, int H, int W, int C, int O,
-                    int nchunks, void* stream) {
-  const long long n_dx = dx ? (long long)K * B * H * W * C : 0;
-  const unsigned grid = (unsigned)K + blocks_for(n_dx, kThreads);
-  conv_bwd_finish_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      part, (const T*)dz, (const T*)da, (const T*)relu_m, (const T*)w, dw, db,
-      (T*)dx, K, B, H, W, C, O, nchunks);
-  return (int)cudaGetLastError();
+int conv_pool_bwd(const void* pat, const void* eq, const void* relu_m,
+                  const void* da, const void* w, float* part, int* counters,
+                  float* dw, float* db, void* dx, int K, int B, int H, int W,
+                  int C, int O, int R, int nchunks, void* stream) {
+  if (C == 1 && O == 8)
+    return conv_bwd_launch<T, 1, 8>(pat, eq, relu_m, da, w, part, counters,
+                                    dw, db, dx, K, B, H, W, C, O,
+                                    R, nchunks, stream);
+  if (C == 8 && O == 16)
+    return conv_bwd_launch<T, 8, 16>(pat, eq, relu_m, da, w, part,
+                                     counters, dw, db, dx, K, B, H, W, C, O,
+                                     R, nchunks, stream);
+  return conv_bwd_launch<T, 0, 0>(pat, eq, relu_m, da, w, part, counters,
+                                  dw, db, dx, K, B, H, W, C, O, R, nchunks,
+                                  stream);
 }
 
 template <typename T>
@@ -1109,10 +1631,7 @@ int fc_bwd(const void* x, const void* h1, const void* h2, const void* g,
   // at most one block per SM over the cohort where it fits (a second
   // block on an SM doubles its time): slices of 16 to 256 columns, a whole
   // number of 8 (4-byte words at either dtype)
-  int dev = 0, nsm = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  int nt = std::max(nsm / K - 1, (F + kThreads - 1) / kThreads);
+  int nt = std::max(sm_count() / K - 1, (F + kThreads - 1) / kThreads);
   nt = std::min(nt, std::max(1, (F + 15) / 16));
   const int ft = std::min(kThreads, ((F + nt - 1) / nt + 7) / 8 * 8);
   nt = (F + ft - 1) / ft;
@@ -1147,22 +1666,15 @@ API int fcnn_conv_pool_fwd(const void* x, const void* w, const void* b,
                   H, W, C, O, write_res, stream);
 }
 
-API int fcnn_conv_bwd_partial(const void* pat, const void* eq,
-                              const void* relu_m, const void* da, void* dz,
-                              float* part, int K, int B, int H, int W, int C,
-                              int O, int R, int nchunks, int is_bf16,
-                              void* stream) {
-  return DISPATCH(is_bf16, conv_bwd_partial, pat, eq, relu_m, da, dz, part,
-                  K, B, H, W, C, O, R, nchunks, stream);
-}
-
-API int fcnn_conv_bwd_finish(const float* part, const void* dz,
-                             const void* da, const void* relu_m,
-                             const void* w, float* dw, float* db, void* dx,
-                             int K, int B, int H, int W, int C, int O,
-                             int nchunks, int is_bf16, void* stream) {
-  return DISPATCH(is_bf16, conv_bwd_finish, part, dz, da, relu_m, w, dw, db,
-                  dx, K, B, H, W, C, O, nchunks, stream);
+// part: K * nchunks * 9C * O floats of scratch; counters: K ints, 0 on
+// entry and on return
+API int fcnn_conv_pool_bwd(const void* pat, const void* eq,
+                           const void* relu_m, const void* da, const void* w,
+                           float* part, int* counters, float* dw, float* db,
+                           void* dx, int K, int B, int H, int W, int C, int O,
+                           int R, int nchunks, int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, conv_pool_bwd, pat, eq, relu_m, da, w, part,
+                  counters, dw, db, dx, K, B, H, W, C, O, R, nchunks, stream);
 }
 
 // counters: K * ceil(B / rows) ints, 0 on entry and on return
@@ -1195,22 +1707,14 @@ API int fcnn_user_conv_pool_fwd(const void* x, const void* w, const void* b,
                   H, W, C, O, 1, stream);
 }
 
-API int fcnn_user_conv_bwd_partial(const void* pat, const void* eq,
-                                   const void* relu_m, const void* da,
-                                   void* dz, float* part, int B, int H, int W,
-                                   int C, int O, int R, int nchunks,
-                                   int is_bf16, void* stream) {
-  return DISPATCH(is_bf16, conv_bwd_partial, pat, eq, relu_m, da, dz, part,
-                  1, B, H, W, C, O, R, nchunks, stream);
-}
-
-API int fcnn_user_conv_bwd_finish(const float* part, const void* dz,
-                                  const void* da, const void* relu_m,
-                                  const void* w, float* dw, float* db,
-                                  void* dx, int B, int H, int W, int C, int O,
-                                  int nchunks, int is_bf16, void* stream) {
-  return DISPATCH(is_bf16, conv_bwd_finish, part, dz, da, relu_m, w, dw, db,
-                  dx, 1, B, H, W, C, O, nchunks, stream);
+API int fcnn_user_conv_pool_bwd(const void* pat, const void* eq,
+                                const void* relu_m, const void* da,
+                                const void* w, float* part, int* counters,
+                                float* dw, float* db, void* dx, int B, int H,
+                                int W, int C, int O, int R, int nchunks,
+                                int is_bf16, void* stream) {
+  return DISPATCH(is_bf16, conv_pool_bwd, pat, eq, relu_m, da, w, part,
+                  counters, dw, db, dx, 1, B, H, W, C, O, R, nchunks, stream);
 }
 
 API int fcnn_user_fc_fwd(const void* x, const void* w1, const void* b1,

@@ -13,12 +13,11 @@ raises), checks shape and contiguity, allocates its outputs with
 stream and raises on a launch error.  There is no fallback from the card
 to the twin.
 
-``LAUNCHES`` counts, per wrapper, the ``__global__`` launches it made (the
-conv backward wrappers make two per call, the others one);
-``LAUNCHES_BF16`` counts those of
-them that ran the bf16 instantiation.  The TPU kernels tile their grid over
-``block_k`` users; the CUDA kernels choose their own tiling, so the port
-takes no ``block_k`` and needs no phantom padding of the cohort.
+``LAUNCHES`` counts, per wrapper, the ``__global__`` launches it made (one
+per call, the conv backward included); ``LAUNCHES_BF16`` counts those of
+them that ran the bf16 instantiation.  The TPU kernels tile their grid
+over ``block_k`` users; the CUDA kernels choose their own tiling, so the
+port takes no ``block_k`` and needs no phantom padding of the cohort.
 """
 from __future__ import annotations
 
@@ -41,13 +40,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # (0 = f32, 1 = bf16), and the single-user entries take no K
 _LIB = _build.Library("fused_cnn", {
     "fcnn_conv_pool_fwd": [_P] * 7 + [_I] * 8,
-    "fcnn_conv_bwd_partial": [_P] * 6 + [_I] * 9,
-    "fcnn_conv_bwd_finish": [_P] * 8 + [_I] * 8,
+    "fcnn_conv_pool_bwd": [_P] * 10 + [_I] * 9,
     "fcnn_fc_fwd": [_P] * 11 + [_I] * 9,
     "fcnn_fc_bwd": [_P] * 14 + [_I] * 7,
     "fcnn_user_conv_pool_fwd": [_P] * 7 + [_I] * 6,
-    "fcnn_user_conv_bwd_partial": [_P] * 6 + [_I] * 8,
-    "fcnn_user_conv_bwd_finish": [_P] * 8 + [_I] * 7,
+    "fcnn_user_conv_pool_bwd": [_P] * 10 + [_I] * 8,
     "fcnn_user_fc_fwd": [_P] * 11 + [_I] * 8,
     "fcnn_user_fc_bwd": [_P] * 14 + [_I] * 6,
 }, "fcnn_error_string", LAUNCHES)
@@ -129,9 +126,10 @@ def conv_pool_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
 
 
 def _rows_per_chunk(p: int, o: int) -> int:
-    """Patch rows per block of the dW partial pass: at most 256, and the
-    rows' patches + dz must fit 32 KB of shared memory as f32 (the same
-    chunking at bf16, so both dtypes sum dW in one order)."""
+    """Patch rows per block of the conv backward (each block sums one dW
+    partial over its rows): at most 256, and the rows' patches + dz fit 32
+    KB as f32.  The chunking fixes dW's summation order, so it is the same
+    at bf16, and a change to it changes dW's bits."""
     r = 256
     while r > 1 and r * (p + o) * 4 > 32 * 1024:
         r //= 2
@@ -154,24 +152,20 @@ def _conv_pool_bwd(res, w, da, need_dx: bool, user: bool):
     new = lambda d, *s: torch.empty(s, dtype=d, device=da.device)
     rows = _rows_per_chunk(9 * c, o)
     nchunks = -(-m // rows)
-    # scratch between the two launches; freed on return while the launches
-    # may still run, which is safe because PyTorch's caching allocator only
-    # hands the memory to later work on the same (current) stream
+    # scratch of the launch (every block's dW partial, which the last block
+    # of each user adds up); freed on return while the launch may still
+    # run, which is safe because PyTorch's caching allocator only hands the
+    # memory to later work on the same (current) stream
     part = new(f32, k, nchunks, 9 * c, o)
-    dz = new(dt, k, m, o)
     dw, db = new(f32, k, 3, 3, c, o), new(f32, k, o)
     dx = new(dt, k, bs, h, wd, c) if need_dx else None
-    bf = int(dt == torch.bfloat16)
     with torch.cuda.device(da.device):
-        _launch(user, "conv_pool_bwd", "fcnn_conv_bwd_partial",
+        _launch(user, "conv_pool_bwd", "fcnn_conv_pool_bwd",
                 [pat.data_ptr(), eq.data_ptr(), relu_m.data_ptr(),
-                 da.data_ptr(), dz.data_ptr(), part.data_ptr()], k,
-                [bs, h, wd, c, o, rows, nchunks, bf])
-        _launch(user, "conv_pool_bwd", "fcnn_conv_bwd_finish",
-                [part.data_ptr(), dz.data_ptr(), da.data_ptr(),
-                 relu_m.data_ptr(), w.data_ptr(), dw.data_ptr(),
-                 db.data_ptr(), _ptr(dx)], k,
-                [bs, h, wd, c, o, nchunks, bf])
+                 da.data_ptr(), w.data_ptr(), part.data_ptr(),
+                 _counters(da.device, k).data_ptr(),
+                 dw.data_ptr(), db.data_ptr(), _ptr(dx)], k,
+                [bs, h, wd, c, o, rows, nchunks, int(dt == torch.bfloat16)])
     return dw, db, dx
 
 
@@ -231,9 +225,10 @@ def fc_fwd_tiling(k: int, bs: int, d1: int) -> Tuple[int, int]:
     return min(bs, FC_FWD_MAX_ROWS), min(d1, FC_FWD_MAX_COLS)
 
 
-# per (device, stream): the fc forward's per-tile counters, which the
-# kernel leaves at 0; a buffer of its own per stream, so that launches on
-# two streams never share one
+# per (device, stream): the counters of the fc forward (one per row tile)
+# and of the conv backward (one per user), which each kernel leaves at 0;
+# a buffer of its own per stream, so that launches on two streams never
+# share one (launches on one stream run one after another)
 _COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 

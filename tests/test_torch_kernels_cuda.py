@@ -209,8 +209,8 @@ def test_single_user_kernels_match_twins_and_blocked(cuda, dtype, ones):
     """The four single-user kernels on one user (B=10) against their twins,
     and bitwise against the blocked kernels at K=1 (the same contraction
     and the same summation order); the conv forward equals its twin
-    exactly at both dtypes.  Launch counts: one per call, two per conv
-    backward call."""
+    exactly at both dtypes.  Launch counts: one per call (the conv
+    backward too, since it became one launch)."""
     from repro_torch.kernels.fused_cnn import kernel as knl, ref
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
     rtol = RTOL if dtype == "f32" else BF16_RTOL
@@ -265,7 +265,7 @@ def test_single_user_kernels_match_twins_and_blocked(cuda, dtype, ones):
             _within(gk[layer][leaf], gp[layer][leaf], rtol)
     assert {n: knl.LAUNCHES[n] for n in ("conv_pool_fwd", "conv_pool_bwd",
                                          "fc_chain_fwd", "fc_chain_bwd")} \
-        == {"conv_pool_fwd": 2, "conv_pool_bwd": 8, "fc_chain_fwd": 1,
+        == {"conv_pool_fwd": 2, "conv_pool_bwd": 4, "fc_chain_fwd": 1,
             "fc_chain_bwd": 1}
 
 
@@ -310,6 +310,63 @@ def test_bf16_blocked_kernels_match_twins(cuda, k, bs, ones):
     with pytest.raises(TypeError, match="bfloat16"):
         knl.conv_pool_fwd_k(x, params["conv1"]["w"].float(),
                             params["conv1"]["b"])
+
+
+CONV_SHAPES = [
+    # (K, B, H, C, O, residuals): the round's cohort at both layers, the
+    # eval (K=1, B=1000, forward without residuals), a ragged image (B=3,
+    # 6 x 6) and a (C, O) outside the paper's, which runs the kernels'
+    # runtime-shape instantiation
+    (10, 10, 28, 1, 8, True), (10, 10, 14, 8, 16, True),
+    (1, 1000, 28, 1, 8, False), (1, 1000, 14, 8, 16, False),
+    (2, 3, 6, 1, 8, True), (2, 3, 6, 3, 5, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("k,bs,h,c,o,res", CONV_SHAPES,
+                         ids=[f"K{s[0]}-B{s[1]}-H{s[2]}-C{s[3]}-O{s[4]}"
+                              f"{'' if s[5] else '-eval'}"
+                              for s in CONV_SHAPES])
+def test_conv_pair_matches_twins_and_repeats(cuda, k, bs, h, c, o, res,
+                                             dtype):
+    """The conv forward and backward against their twins at the round's,
+    the eval's, a ragged and a runtime (C, O) shape: the forward's outputs
+    and masks equal, dW and db to summation order, dx within two bf16 ulps
+    at bf16; the same bits on a second run, one launch a call."""
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(cuda).manual_seed(k * 1000 + h * 10 + c)
+    x = torch.relu(torch.randn((k, bs, h, h, c), device=cuda, generator=g))
+    x[:, :, : h // 3] = 0      # a zero background: tied pool maxima
+    w = torch.randn((k, 3, 3, c, o), device=cuda, generator=g) * 0.3
+    b = torch.randn((k, o), device=cuda, generator=g) * 0.1
+    x, w, b = x.to(dt), w.to(dt), b.to(dt)
+    knl.reset_launches()
+    ak, rk = knl.conv_pool_fwd_k(x, w, b, residuals=res)
+    ak2, rk2 = knl.conv_pool_fwd_k(x, w, b, residuals=res)
+    ap, rp = ref.conv_pool_fwd_k(x, w, b, residuals=res)
+    assert torch.equal(ak, ap) and torch.equal(ak, ak2)
+    assert knl.LAUNCHES["conv_pool_fwd_k"] == 2
+    if not res:
+        assert rk is None
+        return
+    for got, again, want in zip(rk, rk2, rp):
+        assert torch.equal(got, want) and torch.equal(got, again)
+    da = (torch.randn(ap.shape, device=cuda, generator=g) * 0.01).to(dt)
+    for need_dx in (False, True):
+        got = knl.conv_pool_bwd_k(rp, w, da, need_dx)
+        again = knl.conv_pool_bwd_k(rp, w, da, need_dx)
+        want = ref.conv_pool_bwd_k(rp, w, da, need_dx)
+        for gt, ag, wv, nm in zip(got, again, want, ("dw", "db", "dx")):
+            if wv is None:
+                assert gt is None and ag is None
+                continue
+            assert gt.dtype == (dt if nm == "dx" else torch.float32)
+            assert torch.equal(gt, ag), nm
+            _within(gt, wv, BF16_RTOL if nm == "dx" and dtype == "bf16"
+                    else RTOL)
+    assert knl.LAUNCHES["conv_pool_bwd_k"] == 4
 
 
 @pytest.mark.cuda
@@ -459,6 +516,12 @@ FLASH_CASES = [
     (1, 8, 8, 2048, 2048, 32, True, 0),
     (1, 8, 1, 2048, 2048, 128, True, 0),
     (1, 8, 1, 2000, 2000, 128, False, 0),
+    # D=80 (hubert-xlarge: 16 q and 16 kv heads, non-causal, S=1500 frames
+    # of 30 s of audio, ragged against both kernels' tiles), causal, and a
+    # ragged causal S with groups of 2
+    (1, 16, 16, 1500, 1500, 80, False, 0),
+    (2, 8, 8, 512, 512, 80, True, 0),
+    (1, 4, 2, 200, 200, 80, True, 0),
 ]
 
 

@@ -68,8 +68,10 @@ MASKS = {"causal": (True, 0), "full": (False, 0),
 
 
 # every group size at D=32, S=128 (one 128-row reference tile); D=64 at
-# S=256 (a 2 x 2 grid of reference tiles) at the Llama-3.2-1B ratio G=4
-SHAPES = [(1, 32, 128), (2, 32, 128), (4, 32, 128), (4, 64, 256)]
+# S=256 (a 2 x 2 grid of reference tiles) at the Llama-3.2-1B ratio G=4;
+# D=80 at G=1 (hubert-xlarge's head dim, 16 q and 16 kv heads)
+SHAPES = [(1, 32, 128), (2, 32, 128), (4, 32, 128), (4, 64, 256),
+          (1, 80, 128)]
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
