@@ -696,7 +696,9 @@ def codec_input(m: int, block: int, bits: int, seed: int):
     qmax = 2 ** (bits - 1) - 1
     x = torch.randn((m, block), generator=g) * 1e-3
     ties = list(range(3, m, 11))
-    zeros = [r for r in range(0, m, 7) if r not in set(ties)]
+    # (a single row stays Gaussian)
+    zeros = [r for r in range(7 if m == 1 else 0, m, 7)
+             if r not in set(ties)]
     x[zeros] = 0.0
     for r in ties:
         sc = 2.0 ** -(8 + r % 5)
@@ -708,11 +710,15 @@ def codec_input(m: int, block: int, bits: int, seed: int):
 
 def check_codec(chk: Check):
     """Both codec kernels vs their twins on the card, bitwise, over the
-    shapes the paths use; the tie rows must round half to even."""
+    shapes the paths use (the fused round's 2560 rows, one tree's 217,
+    blocks of 512 and 128) and the quantize kernel's other paths (one row;
+    1024, the widest row a warp holds in registers; 2048, which loops over
+    pieces); the tie rows must round half to even."""
     import torch
     from repro_torch.kernels.delta_codec import kernel as knl, ref
-    for m in (2560, 217):
-        for block in (512, 128):
+    for m, blocks in ((2560, (512, 128, 1024)), (217, (512, 128, 2048)),
+                      (1, (512, 2048))):
+        for block in blocks:
             for bits in (8, 4):
                 x, zeros, ties = codec_input(m, block, bits,
                                              m + block + bits)
@@ -761,16 +767,19 @@ def time_codec(m: int = 2560, block: int = 512, bits: int = 8) -> dict:
         print(f"  {name:17s} M={m} block={block} int{bits}: kernel "
               f"{ms * 1e3:8.2f} us  twin {plain_ms * 1e3:8.2f} us  library "
               f"{'n/a' if lib_ms is None else f'{lib_ms * 1e3:8.2f} us'}  "
-              f"bound {b_ms * 1e3:6.2f} us ({by}, {nbytes / 1e6:.2f} MB)  "
-              f"back-to-back wall {wall * 1e3:8.2f} us")
+              f"bound {b_ms * 1e3:6.2f} us ({by}, {nbytes / 1e6:.2f} MB; "
+              f"the kernel at {b_ms / ms:.1%} of it)  back-to-back wall "
+              f"{wall * 1e3:8.2f} us")
     # one tree (the host engine's and the server's snapshots)
     x1 = torch.randn((217, block), device=DEVICE) * 1e-3
     q1, s1 = ref.quantize_ref(x1, bits)
-    print(f"  one tree (217 rows): quantize "
-          f"{device_ms(lambda: knl.quantize_blocks(x1, bits=bits), 200) * 1e3:.2f}"
-          f" us, dequantize "
+    b1_ms, _ = bound_ms(4 * numel(x1) + numel(q1) + 4 * numel(s1), 0.0)
+    q1_ms = device_ms(lambda: knl.quantize_blocks(x1, bits=bits), 200)
+    print(f"  one tree (217 rows): quantize {q1_ms * 1e3:.2f} us (bound "
+          f"{b1_ms * 1e3:.2f} us, {b1_ms / q1_ms:.1%} of it), dequantize "
           f"{device_ms(lambda: knl.dequantize_blocks(q1, s1), 200) * 1e3:.2f}"
           f" us")
+    out["quantize_blocks"]["tree_ms"] = q1_ms
     return out
 
 
@@ -1324,7 +1333,10 @@ def check_zoo_kernels(chk: Check, s: int = ZOO_S):
              ("hubert-xlarge D=80 bf16",
               (ZOO_B, 16, 16, HUBERT_S, HUBERT_S, 80, False, 0, bf)),
              ("hubert-xlarge D=80 f32",
-              (ZOO_B, 16, 16, HUBERT_S, HUBERT_S, 80, False, 0, f32))]
+              (ZOO_B, 16, 16, HUBERT_S, HUBERT_S, 80, False, 0, f32)),
+             # the f32 kernel's widest instantiation (acc 4 x 16 a lane)
+             ("D=128 causal f32", (ZOO_B, 8, 2, 1024, 1024, 128, True, 0,
+                                   f32))]
     for i, (label, (b, h, kv, sq, sk, d, causal, window, dt)) in \
             enumerate(cases):
         q, k, v = flash_inputs(b, h, kv, sq, sk, d, dt, seed=100 + i)
@@ -1373,7 +1385,8 @@ def time_hubert_flash(dt, tag: str) -> dict:
           f"{ms * 1e3:9.2f} us  SDPA "
           f"{lib * 1e3:8.2f} us  bound {b_ms * 1e3:6.2f} us ({by}, "
           f"{flops / 1e9:.2f} GFLOP); achieved: kernel "
-          f"{flops / ms / 1e9:.1f} TFLOP/s, SDPA {flops / lib / 1e9:.1f} "
+          f"{flops / ms / 1e9:.1f} TFLOP/s ({b_ms / ms:.1%} of the bound, "
+          f"{ms / lib:.3f}x SDPA's time), SDPA {flops / lib / 1e9:.1f} "
           f"TFLOP/s")
     return {"d80_ms": ms, "d80_bound_ms": b_ms, "d80_library_ms": lib}
 
@@ -1414,7 +1427,8 @@ def time_zoo_kernels() -> dict:
               f"{plain * 1e3:9.2f} us  SDPA {lib * 1e3:8.2f} us  bound "
               f"{b_ms * 1e3:6.2f} us ({by}, {nbytes(q, k, v, o) / 1e6:.1f} "
               f"MB, {flops / 1e9:.1f} GFLOP); achieved: kernel "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, SDPA "
+              f"{flops / ms / 1e9:.1f} TFLOP/s ({b_ms / ms:.1%} of the "
+              f"bound, {ms / lib:.3f}x SDPA's time), SDPA "
               f"{flops / lib / 1e9:.1f} TFLOP/s")
         r, kk, vv, w, u = wkv_inputs(ZOO_B * 64, ZOO_S, 64, dt, seed=8)
         y, sf = wk.wkv6_bh(r, kk, vv, w, u)

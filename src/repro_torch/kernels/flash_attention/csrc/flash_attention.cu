@@ -69,19 +69,40 @@
 // build log (CUDA 12.8 for sm_90a: 95 at D = 32, 115 at D = 64, 147 at D =
 // 128 and 146 at D = 80 on it, no spills).
 //
-// f32: flash_fwd_kernel, on the CUDA cores, as the port's first version:
-// TF32 tensor-core products would break its 1e-5 parity with the
-// reference, and the f32 path is off the models' main path.  One block of
-// 256 threads owns one
-// (bh, 64-row q tile); the block walks the 64-row k/v tiles of the
-// wavefront, staging q, k and v in shared memory.  The 256 threads form a
-// 16 x 16 grid: thread (ty, tx) computes the scores of q rows ty + 16 i (i
-// < 4) against keys tx + 16 j (j < 4) as 4 x 4 register tiles with float4
-// reads along D, and holds the output rows ty + 16 i at columns tx * D/16
-// .. + D/16 - 1 (D in {32, 64, 80, 128}: at D = 80 five columns a thread,
-// read from v one at a time, and rows of 84 floats in shared memory).  A row's max and sum reduce over the 16 lanes that share
-// ty (xor shuffles, which give every lane the same bits).  p goes through
-// shared memory to the p.v product.  Masked entries get p = 0 exactly.
+// f32: flash_fwd_kernel, on the CUDA cores, all in f32 (FFMA products, an
+// f32 softmax; no TF32, which would break its 1e-5 parity with the
+// reference).  Bound: the 34.4 GFLOP of Llama's prefill over the 67
+// TFLOP/s of f32 FFMA, 0.51 ms (hubert-xlarge's 23.0 GFLOP: 0.34 ms).  Its
+// limits are the shared memory's 128 bytes a clock against 128 FMAs a
+// clock, and keeping the FMA pipes fed between barriers, so:
+// - a block owns 16 NW q rows (NW warps, F32Shape) and walks the 64-row
+//   k/v tiles of their wavefront; warp w owns 16 rows, and lane (ty, tx)
+//   holds s for 4 of them (16 w + ty + 4 i) x 8 keys (tx + 8 j) in
+//   registers.  q, k and v stay row-major in shared memory, rows padded
+//   by 4 floats, so each 16-byte read along D is conflict-free: a step of
+//   4 d reads 4 q and 8 k float4s (one wavefront each) for 128 FMAs;
+// - the k and v tiles load with 16-byte cp.async, one tile ahead of use:
+//   the next k tile while this tile's softmax and p . v run, the next v
+//   tile while the next s = q . k runs (the copies bypass the
+//   registers); two block barriers a tile;
+// - p stays with the warp that made it: each warp writes the p of its 16
+//   rows into its own rows of a p tile and reads them back as float4s
+//   after a __syncwarp; acc += p . v runs 4 keys a step, 4 p and NC / 4 v
+//   float4s for 16 NC FMAs (NC = D / 8 output columns a lane: float4
+//   groups 32 g + 4 tx, and at D = 80 a float2 at 64 + 2 tx);
+// - a row's max reduces over the 8 lanes that hold it (xor shuffles, the
+//   same bits in every lane), its sum l stays a per-lane partial until
+//   the end; p = 2**((s - m) log2 e) and alpha = 2**((m_prev - m) log2 e)
+//   by ex2.approx, the scale multiplied into s after the dot; only warps
+//   whose rows meet the causal diagonal, the window's edge or the ragged
+//   tail mask element by element, and a warp whose rows meet no live key
+//   of a tile skips it.
+// Registers (CUDA 12.8, sm_90a; chip_smoke.py prints them from the build
+// log): 128 at D = 32 and 64 (two blocks an SM; 12 and 80 bytes spilled),
+// 168 at D = 80 and 254 at D = 128 (one block an SM), no spills.
+// On an NVIDIA H100 80GB HBM3 at 700 W (scripts/kernel_ab.py and
+// chip_smoke.py; the numbers are in PERF.md) it runs at about 35 TFLOP/s,
+// ahead of SDPA at both shapes.
 //
 // Both kernels: the reference computes exp(NEG_INF - NEG_INF) = 1 for a
 // row that has met no live key yet and wipes it later with alpha =
@@ -106,254 +127,332 @@ namespace {
 // f32: the CUDA-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;           // q rows per block
-constexpr int kBK = 64;           // k rows per tile
-constexpr int kThreads = 256;     // 16 x 16
-constexpr int kLS = kBK + 4;      // padded row stride of the p tile
+constexpr int kBK = 64;           // k rows per tile (both kernels)
+constexpr int kFP = kBK + 4;      // row stride of the p tile
 // -0.7 * f32 max rounded to f32, the reference's NEG_INF
 constexpr float kNegInf = -2.381976325e+38f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// warps a block (NW, each 16 q rows) and blocks an SM should hold (MINB,
+// which caps the registers at 65536 / (32 NW MINB)) per head dim: the
+// fastest of a sweep on the H100 (NW 8, 12 or 16; MINB 1 or 2).  D = 32
+// and 64 run two 8-warp blocks an SM (128 registers, a few spilled; one
+// block an SM without spills was slower); D = 80 one block of 12 warps;
+// D = 128 one of 8, whose 254 registers 12 warps would spill
+template <int D>
+struct F32Shape {
+  static constexpr int NW = D == 80 ? 12 : 8, MINB = D <= 64 ? 2 : 1;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+// 16 bytes global -> shared without registers; zeros where !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-// rows [row0, row0 + 64) of a (rows, D) matrix -> f32 tile with row stride
-// LD in shared memory; rows at or past `rows` are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int rows) {
-  constexpr int LD = D + 4;
-  constexpr int C4 = D / 4;
-  for (int e = threadIdx.x; e < kBK * C4; e += kThreads) {
-    const int r = e / C4, c = (e % C4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) x = load4(src + (long long)(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+// rows [row0, row0 + ROWS) of a (rows, D) f32 matrix into shared memory
+// with row stride LD, as 16-byte copies in flight (consecutive threads of
+// the block's THREADS on consecutive 16 bytes); rows at or past `rows` are
+// zeros
+template <int D, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int row0, int rows) {
+  constexpr int C4 = D / 4, N = ROWS * C4;
+#pragma unroll
+  for (int n = 0; n < (N + THREADS - 1) / THREADS; ++n) {
+    const int e = threadIdx.x + n * THREADS;
+    if (N % THREADS != 0 && e >= N) break;
+    const int r = e / C4, c = (e - r * C4) * 4;
+    const bool ok = row0 + r < rows;
+    cp_async16(dst + r * LD + c, src + (long long)(ok ? row0 + r : 0) * D + c,
+               ok);
   }
 }
 
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// 2**x in one MUFU instruction (2 ulp; subnormal results flushed to 0);
+// 2**-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int group, int causal, int window, float scale) {
-  constexpr int LD = D + 4;       // padded row stride of the q, k, v tiles
-  constexpr int DJ = D / 16;      // output columns per thread
+// grid: ceil(Sq / (16 NW)) * BH blocks on one axis, heavy (late) q tiles of
+// every head first, and within a tile row the heads in order, so that the
+// `group` q heads of one kv head run side by side and share its tiles in
+// L2.  Warp w owns q rows [16 w, 16 w + 16) of the tile; lane (ty, tx) =
+// (lane / 8, lane % 8) holds s for rows 16 w + ty + 4 i (i < 4) and keys
+// tx + 8 j (j < 8) of a k tile, and the output of the same rows at its NC
+// columns: 32 g + 4 tx .. + 3 for g < D / 32 and, at D = 80, 64 + 2 tx
+// and the next
+template <int D, int NW, int MINB>
+__global__ void __launch_bounds__(32 * NW, MINB)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int BH,
+                 int Sq, int Sk, int group, int causal, int window,
+                 float scale) {
+  constexpr int LDQ = D + 4, LDK = D + 4, LDV = D;  // row strides (floats)
+  constexpr int NF4 = D / 32;          // float4 column groups a lane
+  constexpr int HALF = D % 32 != 0;    // D = 80: a float2 group more
+  static_assert(D % 32 == 0 || D % 32 == 16, "D = 32 m or 32 m + 16");
+  constexpr int NC = 4 * NF4 + 2 * HALF;  // output columns a lane
+  constexpr int QR = 16 * NW, THREADS = 32 * NW;  // q rows, threads
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;      // [kBQ][kLS]
+  float* Ks = Qs + QR * LDQ;
+  float* Vs = Ks + kBK * LDK;
+  float* Ps = Vs + kBK * LDV;          // [QR][kFP]
 
-  // one grid axis, the q tile fastest: block b is tile b % nq of row
-  // b / nq, in the order of a (nq, BH) grid, and BH may pass 65535
-  const unsigned nq = (unsigned)((Sq + kBQ - 1) / kBQ);
-  const int qt = (int)(nq - 1 - blockIdx.x % nq);  // heavy (late) tiles first
-  const int bh = (int)(blockIdx.x / nq);
-  const int q0 = qt * kBQ;
+  const int nq = (Sq + QR - 1) / QR;
+  const int qt = nq - 1 - (int)(blockIdx.x / (unsigned)BH);
+  const int bh = (int)(blockIdx.x % (unsigned)BH);
+  const int q0 = qt * QR;
   const int off = Sk - Sq;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = lane >> 3, tx = lane & 7;
+  const int wr = 16 * warp;            // the warp's first row in the tile
 
-  const T* qb = q + (long long)bh * Sq * D;
-  const T* kb = k + (long long)(bh / group) * Sk * D;
-  const T* vb = v + (long long)(bh / group) * Sk * D;
+  const float* qb = q + (long long)bh * Sq * D;
+  const float* kb = k + (long long)(bh / group) * Sk * D;
+  const float* vb = v + (long long)(bh / group) * Sk * D;
 
-  load_tile<T, D>(Qs, qb, q0, Sq);
-
-  // the k tiles inside the wavefront of this q tile's live rows
-  const int q_first = q0 + off;
-  const int q_last = min(q0 + kBQ, Sq) - 1 + off;
+  // the k tiles inside the wavefront of the block's live rows
   const int nk = (Sk + kBK - 1) / kBK;
   int j_lo = 0, j_hi = nk - 1;
-  if (causal) j_hi = min(j_hi, q_last / kBK);
-  if (window > 0) j_lo = max(0, q_first - window + 1) / kBK;
+  if (causal) j_hi = min(j_hi, (min(q0 + QR, Sq) - 1 + off) / kBK);
+  if (window > 0) j_lo = max(0, q0 + off - window + 1) / kBK;
+  // key positions of the warp's first and last rows
+  const bool w_rows = q0 + wr < Sq;
+  const int first = q0 + wr + off;
+  const int last = min(q0 + wr + 16, Sq) - 1 + off;
 
-  float m[4], l[4], acc[4][DJ];
+  stage_rows<D, QR, LDQ, THREADS>(Qs, qb, q0, Sq);
+  stage_rows<D, kBK, LDK, THREADS>(Ks, kb, j_lo * kBK, Sk);
+  cp_commit();
+  stage_rows<D, kBK, LDV, THREADS>(Vs, vb, j_lo * kBK, Sk);
+  cp_commit();
+
+  float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DJ; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
+  const float* qrow = Qs + (wr + ty) * LDQ;      // + 4 i LDQ
+  const float* krow = Ks + tx * LDK;             // + 8 j LDK
+  float* prow = Ps + (wr + ty) * kFP;            // + 4 i kFP
+  cp_wait<1>();                                  // q and the first k tile
+  __syncthreads();
 
   for (int jt = j_lo; jt <= j_hi; ++jt) {
     const int k0 = jt * kBK;
-    __syncthreads();              // the previous tile's k, v, p are spent
-    load_tile<T, D>(Ks, kb, k0, Sk);
-    load_tile<T, D>(Vs, vb, k0, Sk);
-    __syncthreads();
-
-    // s = q . k for rows ty + 16 i, keys tx + 16 j
-    float s[4][4];
+    // does the warp meet a live key in this tile?
+    const bool live = w_rows && (!causal || k0 <= last) &&
+                      (window <= 0 || first - (k0 + kBK - 1) < window);
+    // s = q . k for the lane's 4 rows x 8 keys, d in order
+    float s[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    if (live) {
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
-    }
-
-    // mask, online max and sum; p to shared memory
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i + off;
-      bool live[4];
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        live[j] = kp < Sk && (!causal || kp <= qp) &&
-                  (window <= 0 || qp - kp < window);
-        s[i][j] = __fmul_rn(s[i][j], scale);
-        if (live[j]) mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max16(mx);
-      alpha[i] = expf(m[i] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = live[j] ? expf(s[i][j] - mx) : 0.f;
-        Ps[(ty + 16 * i) * kLS + tx + 16 * j] = p;
-        rs += p;
-      }
-      rs = row_sum16(rs);
-      l[i] = fmaf(l[i], alpha[i], rs);
-      m[i] = mx;
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p . v
-    float pv[4][DJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < DJ; ++c) pv[i][c] = 0.f;
-#pragma unroll 2
-    for (int c4 = 0; c4 < kBK; c4 += 4) {
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 pp =
-            *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLS + c4);
-        p[i][0] = pp.x; p[i][1] = pp.y; p[i][2] = pp.z; p[i][3] = pp.w;
-      }
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float vv[DJ];
-        const float* vrow = Vs + (c4 + cc) * LD + tx * DJ;
-        if constexpr (DJ % 4 == 0) {
-#pragma unroll
-          for (int c = 0; c < DJ; c += 4) {
-            const float4 x = *reinterpret_cast<const float4*>(vrow + c);
-            vv[c] = x.x; vv[c + 1] = x.y; vv[c + 2] = x.z; vv[c + 3] = x.w;
-          }
-        } else if constexpr (DJ % 2 == 0) {
-#pragma unroll
-          for (int c = 0; c < DJ; c += 2) {
-            const float2 x = *reinterpret_cast<const float2*>(vrow + c);
-            vv[c] = x.x; vv[c + 1] = x.y;
-          }
-        } else {
-          // D = 80: 5 columns a thread, 4-byte aligned only
-#pragma unroll
-          for (int c = 0; c < DJ; ++c) vv[c] = vrow[c];
-        }
+      for (int d = 0; d < D; d += 4) {
+        float4 a[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qrow + 4 * i * LDQ + d);
 #pragma unroll
-          for (int c = 0; c < DJ; ++c) pv[i][c] = fmaf(p[i][cc], vv[c], pv[i][c]);
+        for (int j = 0; j < 8; ++j) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(krow + 8 * j * LDK + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
+          }
+        }
       }
     }
+    cp_wait<0>();                 // this tile's v
+    __syncthreads();              // ... visible; every warp done with k
+    if (jt < j_hi) {
+      stage_rows<D, kBK, LDK, THREADS>(Ks, kb, k0 + kBK, Sk);
+      cp_commit();
+    }
+
+    if (live) {
+      // scale after the dot; mask only where the warp's rows meet the
+      // causal diagonal, the window's edge or the ragged tail: a masked
+      // entry is -inf, so its p is 0 exactly
+      const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > first) ||
+                        (window > 0 && last - k0 >= window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int qp = first + ty + 4 * i;
+        float mx = m[i];
 #pragma unroll
-      for (int c = 0; c < DJ; ++c) acc[i][c] = fmaf(acc[i][c], alpha[i], pv[i][c]);
+        for (int j = 0; j < 8; ++j) {
+          float x = __fmul_rn(s[i][j], scale);
+          if (edge) {
+            const int kp = k0 + tx + 8 * j;
+            if (!(kp < Sk && (!causal || kp <= qp) &&
+                  (window <= 0 || qp - kp < window)))
+              x = -INFINITY;
+          }
+          s[i][j] = x;
+          mx = fmaxf(mx, x);
+        }
+        // the row's max over the 8 lanes that hold it (xor shuffles give
+        // every lane the same bits)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        // alpha = exp(m_prev - m_cur); a row that has met no live key
+        // keeps m = NEG_INF, alpha = 1 and l = 0
+        const float alpha = ex2((m[i] - mx) * kLog2e);
+        m[i] = mx;
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p = ex2((s[i][j] - mx) * kLog2e);
+          prow[4 * i * kFP + tx + 8 * j] = p;
+          rs += p;
+        }
+        l[i] = fmaf(l[i], alpha, rs);   // a lane's partial; summed at the end
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+      }
+      __syncwarp();               // p of the warp's rows, all 64 keys
+
+      // acc += p . v: 4 keys a step, p of the lane's rows as float4s
+      const float* vcol = Vs + 4 * tx;
+#pragma unroll 2
+      for (int c = 0; c < kBK; c += 4) {
+        float4 p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p[i] = *reinterpret_cast<const float4*>(prow + 4 * i * kFP + c);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float* vr = vcol + (c + cc) * LDV;
+          float vv[NC];
+#pragma unroll
+          for (int g = 0; g < NF4; ++g) {
+            const float4 x = *reinterpret_cast<const float4*>(vr + 32 * g);
+            vv[4 * g] = x.x; vv[4 * g + 1] = x.y;
+            vv[4 * g + 2] = x.z; vv[4 * g + 3] = x.w;
+          }
+          if constexpr (HALF) {
+            const float2 x = *reinterpret_cast<const float2*>(
+                Vs + (c + cc) * LDV + 32 * NF4 + 2 * tx);
+            vv[4 * NF4] = x.x; vv[4 * NF4 + 1] = x.y;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pi = cc == 0 ? p[i].x : cc == 1 ? p[i].y
+                           : cc == 2 ? p[i].z : p[i].w;
+#pragma unroll
+            for (int col = 0; col < NC; ++col)
+              acc[i][col] = fmaf(pi, vv[col], acc[i][col]);
+          }
+        }
+      }
+    }
+    cp_wait<0>();                 // the next k tile
+    __syncthreads();              // ... visible; every warp done with v, p
+    if (jt < j_hi) {
+      stage_rows<D, kBK, LDV, THREADS>(Vs, vb, k0 + kBK, Sk);
+      cp_commit();
+    }
   }
 
+  // out = acc / max(l, 1e-20): l summed over the 8 lanes of the row
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+    float lr = l[i];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 4);
+    const int r = q0 + wr + ty + 4 * i;
     if (r >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-20f);
-    T* orow = o + ((long long)bh * Sq + r) * D + tx * DJ;
+    const float denom = fmaxf(lr, 1e-20f);
+    float* orow = o + ((long long)bh * Sq + r) * D;
 #pragma unroll
-    for (int c = 0; c < DJ; ++c) store(orow + c, __fdiv_rn(acc[i][c], denom));
+    for (int g = 0; g < NF4; ++g)
+      *reinterpret_cast<float4*>(orow + 32 * g + 4 * tx) = make_float4(
+          __fdiv_rn(acc[i][4 * g], denom), __fdiv_rn(acc[i][4 * g + 1], denom),
+          __fdiv_rn(acc[i][4 * g + 2], denom),
+          __fdiv_rn(acc[i][4 * g + 3], denom));
+    if constexpr (HALF)
+      *reinterpret_cast<float2*>(orow + 32 * NF4 + 2 * tx) =
+          make_float2(__fdiv_rn(acc[i][4 * NF4], denom),
+                      __fdiv_rn(acc[i][4 * NF4 + 1], denom));
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int BH,
            int Sq, int Sk, int group, int causal, int window, float scale,
            void* stream) {
-  constexpr int LD = D + 4;
-  constexpr int smem = (kBQ * LD + 2 * kBK * LD + kBQ * kLS) * 4;
+  using S = F32Shape<D>;
+  constexpr int QR = 16 * S::NW;
+  const auto kernel = flash_fwd_kernel<D, S::NW, S::MINB>;
+  constexpr int smem =
+      ((D + 4) * QR + (D + 4) * kBK + D * kBK + kFP * QR) * 4;
   // set on every launch: the attribute is per device, and the call costs
   // far less than the kernel
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  const long long blocks = (long long)((Sq + kBQ - 1) / kBQ) * BH;
+  const long long blocks = (long long)((Sq + QR - 1) / QR) * BH;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_fwd_kernel<T, D><<<(unsigned)blocks, kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, group, causal,
-      window, scale);
+  kernel<<<(unsigned)blocks, 32 * S::NW, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), BH, Sq, Sk, group,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch_f32(const void* q, const void* k, const void* v, void* o, int BH,
-             int Sq, int Sk, int D, int group, int causal, int window,
-             float scale, void* stream) {
+                 int Sq, int Sk, int D, int group, int causal, int window,
+                 float scale, void* stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, BH, Sq, Sk, group, causal, window,
-                           scale, stream);
+      return launch<32>(q, k, v, o, BH, Sq, Sk, group, causal, window, scale,
+                        stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, BH, Sq, Sk, group, causal, window,
-                           scale, stream);
+      return launch<64>(q, k, v, o, BH, Sq, Sk, group, causal, window, scale,
+                        stream);
     case 80:
-      return launch<T, 80>(q, k, v, o, BH, Sq, Sk, group, causal, window,
-                           scale, stream);
+      return launch<80>(q, k, v, o, BH, Sq, Sk, group, causal, window, scale,
+                        stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, BH, Sq, Sk, group, causal, window,
-                            scale, stream);
+      return launch<128>(q, k, v, o, BH, Sq, Sk, group, causal, window,
+                         scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -363,7 +462,6 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int BH,
 // bf16: the tensor-core kernel (TMA loads, wgmma products)
 // ---------------------------------------------------------------------------
 
-// k/v tiles of kBK = 64 rows, as the f32 kernel's
 constexpr int kWG = 64;      // q rows per consumer warpgroup
 constexpr int kStages = 3;   // k/v tiles in flight
 
@@ -381,10 +479,6 @@ template <>
 struct TcShape<128> {
   static constexpr int NWG = 2, MINB = 1;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -459,14 +553,6 @@ template <int N>
 __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// 2**x in one MUFU instruction (2 ulp, subnormal results flushed to 0:
-// far below what bf16 p keeps); 2**-inf = 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -907,6 +993,6 @@ API int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (bf16)
     return dispatch_bf16(q, k, v, o, BH, Sq, Sk, D, group, causal, window,
                          scale, stream);
-  return dispatch_f32<float>(q, k, v, o, BH, Sq, Sk, D, group, causal,
-                             window, scale, stream);
+  return dispatch_f32(q, k, v, o, BH, Sq, Sk, D, group, causal, window,
+                      scale, stream);
 }

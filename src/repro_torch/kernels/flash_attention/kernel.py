@@ -13,7 +13,9 @@ output with ``torch.empty``, launches on the current stream and raises on
 a launch error.  There is no fallback from the card to the twin.  The
 dtype picks the CUDA kernel: bf16 runs on the tensor cores (TMA loads,
 ``wgmma`` products, 128-row q tiles, p rounded to bf16 before p·v), f32
-on the CUDA cores (64-row tiles, all in f32).  The reference's TPU tile
+on the CUDA cores, all in f32 (FFMA products, no TF32: 128- or 192-row q
+tiles, a 4 x 8 register tile of scores a lane, k and v tiles loaded one
+ahead with ``cp.async``, p kept inside the warp that made it).  The reference's TPU tile
 sizes (``block_q``, ``block_k``) have no counterpart: both kernels mask a
 ragged tail themselves, so any ``S >= 1`` works (the reference asserts
 ``S % block == 0``).  The head dim is one of ``HEAD_DIMS``: 32, 64, 80

@@ -867,6 +867,11 @@ __device__ __forceinline__ void store_span(T* __restrict__ dst, const T* src,
     dst[i] = src[i];
 }
 
+// shared memory a block of the conv pair may take: the H100's 227 KB
+// less 128 bytes for the kernels' static flags (CONV_SMEM_LIMIT of
+// kernel.py, which sizes the backward's chunks against it)
+constexpr size_t kConvSmemLimit = 227 * 1024 - 128;
+
 // bytes of a span region: n elements of tsize bytes and 16 to spare, in
 // whole 16 bytes
 __host__ __device__ inline int span_bytes(int n, int tsize) {
@@ -1125,7 +1130,9 @@ conv_pool_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // grid = (nchunks + 1 padded to whole clusters, K), 256 threads.  Block
 // (c, k), c < nchunks, owns the R patch rows [c R, c R + R) of user k's
 // M = B*H*W (R, from the wrapper, and the chunk boundaries fix dW's
-// summation order, and so its bits):
+// summation order, and so its bits; the wrapper halves R until the
+// block's ConvBwdSmem fits kConvSmemLimit, and refuses a shape whose one
+// row does not):
 // - it copies its rows' patches, and the eq, da and relu_m rows that dz
 //   needs for its rows and, for dx, for the W + 1 rows on either side that
 //   its gather reads, into shared memory at once (cp.async: one round trip
@@ -1493,16 +1500,23 @@ int conv_fwd_launch(const void* x, const void* w, const void* b, void* a,
   // bands of nph pooled rows: whole images where there are enough of them
   // to give each SM 4 blocks (the eval's B = 1000), else as many bands as
   // that takes (the round's 100 images: 5 of conv1's 14 rows, 4 of
-  // conv2's 7; one user's 10: a band a row)
+  // conv2's 7; one user's 10: a band a row); then narrower bands until a
+  // block's shared memory fits (large images and channel counts; the
+  // paper's shapes fit as they are).  The wrapper refuses a shape whose
+  // single row does not fit
   const int PH = H / 2, images = K * B;
   int bands =
       std::min(PH, std::max(1, (4 * sm_count() + images - 1) / images));
-  const int nph = (PH + bands - 1) / bands;
+  int nph = (PH + bands - 1) / bands;
+  while (nph > 1 &&
+         ConvFwdSmem(nph, W, C, O, (int)sizeof(T), write_res).total >
+             kConvSmemLimit)
+    --nph;
   bands = (PH + nph - 1) / nph;
   const long long blocks = (long long)images * bands;
   const size_t smem =
       ConvFwdSmem(nph, W, C, O, (int)sizeof(T), write_res).total;
-  if (smem > 227 * 1024 || blocks > 0x7fffffffLL)
+  if (smem > kConvSmemLimit || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if constexpr (OO == 16)
     if (bands > 1)
@@ -1534,9 +1548,10 @@ int conv_bwd_launch(const void* pat, const void* eq, const void* relu_m,
                     int* counters, float* dw, float* db, void* dx, int K,
                     int B, int H, int W, int C, int O, int R, int nchunks,
                     void* stream) {
+  // R comes from the wrapper, which halves it until this fits
   const size_t smem =
       ConvBwdSmem(R, W, C, O, (int)sizeof(T), dx != nullptr).total;
-  if (smem > 227 * 1024 || O > kThreads || K > 65535 || nchunks < 1)
+  if (smem > kConvSmemLimit || O > kThreads || K > 65535 || nchunks < 1)
     return (int)cudaErrorInvalidValue;
   const auto kernel = conv_pool_bwd_kernel<T, CC, OO>;
   int rc = set_smem((const void*)kernel, smem);

@@ -90,6 +90,12 @@ def _conv_pool_fwd(x, w, b, residuals: bool, user: bool):
     _build.check("b", b, (k, o), dt)
     if h % 2 or wd % 2 or bs < 1 or k < 1:
         raise ValueError(f"conv_pool_fwd: bad input shape {tuple(x.shape)}")
+    # the launcher narrows its bands of pooled rows until a block fits;
+    # one row is the least it can take
+    need = conv_fwd_smem(1, wd, c, o, x.element_size(), residuals)
+    if need > CONV_SMEM_LIMIT:
+        raise _too_big("conv_pool_fwd", need,
+                       f"H={h} W={wd} C={c} O={o} residuals={residuals}")
     new = lambda *s: torch.empty(s, dtype=dt, device=x.device)
     a = new(k, bs, h // 2, wd // 2, o)
     pat = eq = relu_m = None
@@ -125,14 +131,74 @@ def conv_pool_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     return a[0], tuple(r[0] for r in res)
 
 
-def _rows_per_chunk(p: int, o: int) -> int:
+# shared memory a block of the conv pair may take: the H100's 227 KB
+# (232 448 bytes) less 128 for the kernels' static flags; the launchers of
+# csrc/fused_cnn.cu size against the same number (kConvSmemLimit)
+CONV_SMEM_LIMIT = 227 * 1024 - 128
+
+
+def _span(n: int, tsize: int) -> int:
+    """Bytes of a span region of n elements: 16 to spare, whole 16s
+    (``span_bytes`` of fused_cnn.cu)."""
+    return (n * tsize + 31) // 16 * 16
+
+
+def conv_fwd_smem(nph: int, wd: int, c: int, o: int, tsize: int,
+                  residuals: bool) -> int:
+    """Shared-memory bytes of a conv forward block over a band of ``nph``
+    pooled rows (``ConvFwdSmem`` of fused_cnn.cu)."""
+    tr = 2 * nph + 2
+    total = _span(tr * wd * c, tsize) + (tr * (wd + 2) * c * 4 + 15) // 16 \
+        * 16 + _span(9 * c * o, tsize) + _span(o, tsize) \
+        + _span(nph * (wd // 2) * o, tsize)
+    if residuals:
+        total += _span(nph * (wd // 2) * o, tsize) \
+            + _span(2 * nph * wd * o, tsize) \
+            + _span(2 * nph * wd * 9 * c, tsize)
+    return total
+
+
+def conv_bwd_smem(rows: int, wd: int, c: int, o: int, tsize: int,
+                  need_dx: bool) -> int:
+    """Shared-memory bytes of a conv backward block over a chunk of
+    ``rows`` patch rows (``ConvBwdSmem`` of fused_cnn.cu)."""
+    n = rows + (2 * (wd + 1) if need_dx else 0)   # dz rows, halo included
+    npr = (n + wd - 1) // wd // 2 + 2
+    lw = o if o % 4 else o + 4
+    total = _span(rows * 9 * c, tsize) + _span(n * o, tsize) \
+        + 2 * _span(npr * (wd // 2) * o, tsize) + (n * o * 4 + 15) // 16 * 16 \
+        + (n * 4 + 15) // 16 * 16
+    if need_dx:
+        total += _span(9 * c * o, tsize) + (9 * c * lw * 4 + 15) // 16 * 16
+    return total
+
+
+def _too_big(what: str, need: int, shape) -> ValueError:
+    return ValueError(
+        f"{what}: shape {shape} needs {need} bytes of shared memory for one "
+        f"{'pooled row' if what == 'conv_pool_fwd' else 'patch row'}, over "
+        f"the {CONV_SMEM_LIMIT} bytes a block may take (the H100's 227 KB "
+        f"less the kernels' static flags)")
+
+
+def _rows_per_chunk(c: int, o: int, wd: int, tsize: int,
+                    need_dx: bool) -> int:
     """Patch rows per block of the conv backward (each block sums one dW
-    partial over its rows): at most 256, and the rows' patches + dz fit 32
-    KB as f32.  The chunking fixes dW's summation order, so it is the same
-    at bf16, and a change to it changes dW's bits."""
+    partial over its rows): at most 256, the rows' patches + dz fit 32 KB
+    as f32, and halved further until the block's shared memory fits
+    ``CONV_SMEM_LIMIT`` (which moves no shape the paper runs).  The
+    chunking fixes dW's summation order, so it is the same at bf16, and a
+    change to it changes dW's bits.  Raises where not one row fits."""
     r = 256
-    while r > 1 and r * (p + o) * 4 > 32 * 1024:
+    while r > 1 and r * (9 * c + o) * 4 > 32 * 1024:
         r //= 2
+    while r > 1 and conv_bwd_smem(r, wd, c, o, tsize, need_dx) \
+            > CONV_SMEM_LIMIT:
+        r //= 2
+    need = conv_bwd_smem(r, wd, c, o, tsize, need_dx)
+    if need > CONV_SMEM_LIMIT:
+        raise _too_big("conv_pool_bwd", need,
+                       f"W={wd} C={c} O={o} dx={need_dx}")
     return r
 
 
@@ -150,7 +216,7 @@ def _conv_pool_bwd(res, w, da, need_dx: bool, user: bool):
     if o > 256:
         raise ValueError(f"conv_pool_bwd: O={o} > 256 output channels")
     new = lambda d, *s: torch.empty(s, dtype=d, device=da.device)
-    rows = _rows_per_chunk(9 * c, o)
+    rows = _rows_per_chunk(c, o, wd, da.element_size(), need_dx)
     nchunks = -(-m // rows)
     # scratch of the launch (every block's dW partial, which the last block
     # of each user adds up); freed on return while the launch may still

@@ -369,6 +369,89 @@ def test_conv_pair_matches_twins_and_repeats(cuda, k, bs, h, c, o, res,
     assert knl.LAUNCHES["conv_pool_bwd_k"] == 4
 
 
+# (K, B, H, C, O, residuals) whose bands of pooled rows, as the SM count
+# alone picks them, pass the shared memory a block may take: the launcher
+# narrows them (whole images of 56 x 56 at the eval's B; 28 x 28 with
+# residuals and 8 -> 16 channels)
+CONV_NARROWED = [(1, 600, 56, 8, 16, False), (1, 600, 28, 8, 16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,bs,h,c,o,res", CONV_NARROWED,
+                         ids=[f"K{s[0]}-B{s[1]}-H{s[2]}-C{s[3]}-O{s[4]}"
+                              f"{'' if s[5] else '-eval'}"
+                              for s in CONV_NARROWED])
+def test_conv_forward_narrows_its_bands_to_fit(cuda, k, bs, h, c, o, res):
+    """Shapes whose first choice of band overflows shared memory run on
+    narrower bands and equal the twin (the forward sums in its order)."""
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    g = torch.Generator(cuda).manual_seed(h * c + o)
+    x = torch.relu(torch.randn((k, bs, h, h, c), device=cuda, generator=g))
+    w = torch.randn((k, 3, 3, c, o), device=cuda, generator=g) * 0.3
+    b = torch.randn((k, o), device=cuda, generator=g) * 0.1
+    assert knl.conv_fwd_smem(h // 2, h, c, o, 4, res) > knl.CONV_SMEM_LIMIT
+    ak, rk = knl.conv_pool_fwd_k(x, w, b, residuals=res)
+    ap, rp = ref.conv_pool_fwd_k(x, w, b, residuals=res)
+    assert torch.equal(ak, ap)
+    for got, want in zip(rk or (), rp or ()):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd,c,o", [(224, 64, 64), (64, 64, 32),
+                                    (160, 32, 32)],
+                         ids=["W224-C64-O64", "W64-C64-O32", "W160-C32-O32"])
+def test_conv_pair_sized_to_shared_memory(cuda, wd, c, o):
+    """One image (K=1, B=1) of W x W x C -> O: each call either matches
+    the twin, computed on a CPU copy, or is refused before any launch
+    with a message that names the shared-memory limit (the sizing rule of
+    ``kernel.py`` decides which).  At 224 x 224, 64 -> 64 the forward
+    (both modes) and the backward with dx are refused and the backward
+    without dx runs on chunks of 8 rows; at 64 x 64, 64 -> 32 and 160 x
+    160, 32 -> 32 the backward with dx runs on chunks narrowed to 4
+    rows."""
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    g = torch.Generator().manual_seed(wd + c + o)
+    x = torch.relu(torch.randn((1, 1, wd, wd, c), generator=g))
+    w = torch.randn((1, 3, 3, c, o), generator=g) * 0.1
+    b = torch.randn((1, o), generator=g) * 0.1
+    ap, rp = ref.conv_pool_fwd_k(x, w, b)
+    da = torch.randn(ap.shape, generator=g) * 0.01
+    on = lambda t: t.to(cuda)
+    launches = dict(knl.LAUNCHES)
+    for res in (True, False):
+        fits = knl.conv_fwd_smem(1, wd, c, o, 4, res) <= knl.CONV_SMEM_LIMIT
+        if fits:
+            ak, rk = knl.conv_pool_fwd_k(on(x), on(w), on(b), residuals=res)
+            assert torch.equal(ak.cpu(), ap)
+            for got, want in zip(rk or (), rp if res else ()):
+                assert torch.equal(got.cpu(), want)
+        else:
+            with pytest.raises(ValueError, match="232320 bytes"):
+                knl.conv_pool_fwd_k(on(x), on(w), on(b), residuals=res)
+    for need_dx in (False, True):
+        try:
+            knl._rows_per_chunk(c, o, wd, 4, need_dx)
+        except ValueError:
+            with pytest.raises(ValueError, match="shared memory"):
+                knl.conv_pool_bwd_k(tuple(map(on, rp)), on(w), on(da),
+                                    need_dx)
+            continue
+        got = knl.conv_pool_bwd_k(tuple(map(on, rp)), on(w), on(da), need_dx)
+        want = ref.conv_pool_bwd_k(rp, w, da, need_dx)
+        for gt, wv in zip(got, want):
+            if wv is None:
+                assert gt is None
+            else:
+                _close(gt.cpu(), wv)
+    torch.cuda.synchronize()
+    ran = {n: knl.LAUNCHES[n] - launches[n] for n in launches}
+    if (wd, c, o) == (224, 64, 64):
+        assert ran["conv_pool_fwd_k"] == 0 and ran["conv_pool_bwd_k"] == 1
+    else:
+        assert ran["conv_pool_bwd_k"] == 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [
     {"precision": "bf16"}, {"batch_users": False},
@@ -447,6 +530,33 @@ def test_codec_kernels_match_twins_bitwise(cuda, m, block, bits):
     assert knl.LAUNCHES == {"quantize_blocks": 1, "dequantize_blocks": 1}
     with pytest.raises(TypeError, match="float32"):
         knl.quantize_blocks(x.double())
+
+
+# every row width the register kernel is built for, and two that take the
+# loop over 128-float pieces (384: no power of two; 2048: wider than a
+# warp's registers), at one row, one tree and the fused round's rows
+QUANT_CASES = [(m, block, bits) for m in (1, 217, 2560)
+               for block in (128, 256, 512, 1024, 384, 2048)
+               for bits in (8, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,block,bits", QUANT_CASES,
+                         ids=[f"M{m}-block{b}-int{q}"
+                              for m, b, q in QUANT_CASES])
+def test_quantize_kernel_every_width_bitwise(cuda, m, block, bits):
+    """q and the scales bitwise equal to the twin's, with the all-zero rows
+    and the rows on exact .5 quanta of ``codec_input`` (a single row: one
+    on .5 quanta); one launch."""
+    from repro_torch.kernels.delta_codec import kernel as knl, ref
+    # one row: the tie row 3 of four
+    x = codec_input(max(m, 4), block, bits, 7 * m + block + bits,
+                    cuda)[-m:].contiguous()
+    knl.reset_launches()
+    q, s = knl.quantize_blocks(x, bits=bits)
+    qr, sr = ref.quantize_ref(x, bits)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert knl.LAUNCHES["quantize_blocks"] == 1
 
 
 @pytest.mark.cuda
@@ -547,6 +657,42 @@ def test_flash_attention_kernel_matches_twin(cuda, case, dtype):
     assert got.dtype == dt
     _within(got.float(), want.float(),
             RTOL if dtype == "f32" else ZOO_BF16_RTOL)
+
+
+# the f32 kernel's masks at every head dim: (label, Sq, Sk, causal, window);
+# 300 is ragged against its 128-row q tiles and 64-row k tiles, and a
+# window of 20 is narrower than a tile
+F32_MASKS = [("causal", 256, 256, True, 0), ("window20", 256, 256, True, 20),
+             ("window256", 600, 600, True, 256),
+             ("noncausal", 256, 256, False, 0),
+             ("ragged-causal", 300, 300, True, 0),
+             ("ragged-noncausal", 300, 300, False, 0),
+             ("sq100-sk300", 100, 300, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("mask", F32_MASKS, ids=[m[0] for m in F32_MASKS])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_flash_attention_f32_every_head_dim_and_mask(cuda, d, mask, group):
+    """The f32 kernel against its twin within 1e-5 of the largest, at
+    every head dim it is built for, each mask and GQA groups of 1 and 4
+    (B=2, 2 kv heads); a second launch gives the same bits."""
+    from repro_torch.kernels.flash_attention import kernel as knl, ref
+    assert d in knl.HEAD_DIMS
+    _, sq, sk, causal, window = mask
+    g = torch.Generator(cuda).manual_seed(d * 1000 + sq + sk + group)
+    q = torch.randn(2 * 2 * group, sq, d, device=cuda, generator=g)
+    k, v = (torch.randn(2 * 2, sk, d, device=cuda, generator=g)
+            for _ in range(2))
+    got = knl.flash_attention_bh(q, k, v, group_size=group, causal=causal,
+                                 window=window)
+    again = knl.flash_attention_bh(q, k, v, group_size=group, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bh_ref(q, k, v, group, causal, window)
+    _within(got, want, RTOL)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -887,6 +1033,65 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert HSFLSimulation(cfg, device="cpu").device.type == "cpu"
     assert build_model(zoo, "cpu").device.type == "cpu"
+
+
+def test_conv_backward_chunks_keep_the_paper_shapes():
+    """The backward's chunk rows at the paper's layers are the 32 KB
+    rule's, so dW keeps its summation order: conv1 (1 -> 8, 28 x 28) 256
+    rows, conv2 (8 -> 16, 14 x 14) 64, at both dtypes."""
+    from repro_torch.kernels.fused_cnn import kernel as knl
+    for tsize in (4, 2):
+        for need_dx in (False, True):
+            assert knl._rows_per_chunk(1, 8, 28, tsize, need_dx) == 256
+            assert knl._rows_per_chunk(8, 16, 14, tsize, need_dx) == 64
+
+
+@pytest.mark.parametrize("wd,c,o,need_dx,rows", [
+    (224, 64, 64, False, 8), (64, 64, 32, True, 4), (160, 32, 32, True, 4),
+    (224, 64, 64, True, None), (112, 32, 64, True, None)])
+def test_conv_backward_chunks_fit_shared_memory(wd, c, o, need_dx, rows):
+    """Chunks of the 32 KB rule where they fit (224 x 224, 64 -> 64
+    without dx: 8 rows), else halved until a block's shared memory fits
+    the limit (the 32 KB rule gives 8 and 16 rows there); a shape whose
+    single row does not fit is refused with a message naming the limit."""
+    from repro_torch.kernels.fused_cnn import kernel as knl
+    if rows is None:
+        with pytest.raises(ValueError, match="232320 bytes a block may take"):
+            knl._rows_per_chunk(c, o, wd, 4, need_dx)
+        return
+    assert knl._rows_per_chunk(c, o, wd, 4, need_dx) == rows
+    assert knl.conv_bwd_smem(rows, wd, c, o, 4, need_dx) \
+        <= knl.CONV_SMEM_LIMIT
+    if need_dx:
+        assert knl.conv_bwd_smem(2 * rows, wd, c, o, 4, need_dx) \
+            > knl.CONV_SMEM_LIMIT
+
+
+def test_conv_shared_memory_counts():
+    """The mirrors of ConvFwdSmem and ConvBwdSmem, counted by hand at the
+    paper's layers (f32): conv1's band of 3 pooled rows with residuals,
+    conv2's whole image without, conv2's backward chunk of 64 rows with
+    dx."""
+    from repro_torch.kernels.fused_cnn import kernel as knl
+    span = lambda n: (n * 4 + 31) // 16 * 16
+    # 8 input rows of 28 x 1, their f32 planes (30 columns), w, b, a,
+    # relu_m, eq (6 rows of 28 x 8), pat (6 rows of 28 x 9)
+    assert knl.conv_fwd_smem(3, 28, 1, 8, 4, True) == (
+        span(8 * 28) + 8 * 30 * 4 + span(72) + span(8) + 2 * span(3 * 14 * 8)
+        + span(6 * 28 * 8) + span(6 * 28 * 9))
+    assert knl.conv_fwd_smem(7, 14, 8, 16, 4, False) == (
+        span(16 * 14 * 8) + 16 * 16 * 8 * 4 + span(72 * 16) + span(16)
+        + span(7 * 7 * 16))
+    # 64 rows of patches; dz rows with the halo: 64 + 2 * 15 = 94; the
+    # pooled rows that cover them: (94 + 13) // 14 // 2 + 2 = 5 (7 wide);
+    # the 94 f32 dz rows, their 94 offsets (376 bytes, in whole 16s: 384),
+    # w and its f32 copy in rows padded to 20
+    n = 64 + 2 * 15
+    assert knl.conv_bwd_smem(64, 14, 8, 16, 4, True) == (
+        span(64 * 72) + span(n * 16) + 2 * span(5 * 7 * 16) + n * 16 * 4
+        + 384 + span(72 * 16) + 72 * 20 * 4)
+    with pytest.raises(ValueError, match="232320 bytes a block may take"):
+        raise knl._too_big("conv_pool_fwd", 1, "x")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
