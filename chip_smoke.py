@@ -12,8 +12,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    the seconds it took, and each kernel's registers and spills;
 3. kernels vs their plain PyTorch twins on the card.  Blocked fused CNN:
    the main path's shapes (K=10 users, batch 10, both conv layers) at f32
-   and bf16, an odd cohort (K=3, B=7), the eval shape (K=1, B=1000) and an
-   all-ones pool-tie cohort.  Single-user fused CNN: one user of batch 10
+   and bf16, a sweep group's folded cohort (K=60, B=10) at f32 and bf16,
+   an odd cohort (K=3, B=7), the eval shape (K=1, B=1000), a sweep group's
+   eval (K=6 models, B=1000, no residuals) and an all-ones pool-tie
+   cohort.  Single-user fused CNN: one user of batch 10
    and the all-ones tie case, at f32 and bf16, also held bit for bit to
    the blocked kernels at K=1.  Delta codec, bitwise: M = 2560 (the fused
    round's 256·10 rows) and 217 (one tree), blocks 512 and 128, int8 and
@@ -59,7 +61,25 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    RWKV6-7B, tokens per second; (e) card vs CPU at the reduced size:
    logits, and greedy tokens equal at f32.  The phase prints its wall
    time;
-9. the card's line, the kernels' JSON line, and the result line.
+9. the sweep path (``Experiment(...).run(engine="sweep")``) at the paper's
+   configuration with the rounds cut to 5: (a) a Fig. 3(b) panel (opt
+   b=2, async b=1, discard b=1, seeds 0 and 1: 2 programs), (b) the Fig.
+   3(c) budget axis (b = 1..6, one seed: 6 configs folded into a cohort of
+   60 users), (c) the codec panel (opt and discard with the codec: 1
+   program).  Each panel runs with every count set to 0 just before and
+   read just after; each group's training kernels must launch rounds x e x
+   steps x (their launches per step) times whatever its number of
+   (simulation, config) rows, the eval once per layer per round, the codec
+   one quantize per epoch and one dequantize per round.  For every group:
+   the round loop runs again under ``torch.cuda.set_sync_debug_mode
+   ("error")`` (no host round trip), a second run is equal bit for bit, the
+   row of seed 1 equals seed 1 run alone, and 2 rounds on the card equal 2
+   on the CPU from one CPU-drawn stream (counts, params within
+   ``PARAM_ATOL``, plus one quantization step with the codec).  It prints
+   each group's ms per simulated round per (simulation, config) beside
+   phase 4's fused round, the device busy share of one group round under
+   the profiler, and the final test accuracy;
+10. the card's line, the kernels' JSON line, and the result line.
 
 It imports nothing of JAX.  Without a CUDA card it exits 2 and prints no
 result.
@@ -464,6 +484,27 @@ def check_case(chk: Check, label: str, k: int, bs: int, seed: int,
     lk, _ = knl.fc_chain_fwd_k(e2p.reshape(1, 1000, -1), p0)
     lp, _ = ref.fc_chain_fwd_k(e2p.reshape(1, 1000, -1), p0)
     chk.close("fc_chain_fwd_k", "eval logits (K=1,B=1000)", lk, lp)
+
+
+def check_eval_group(chk: Check, g: int = 6, seed: int = 7):
+    """A sweep group's eval: G models each on the 1000 test images, the
+    forward kernels at K = G without residuals, against the twins."""
+    from repro_torch.kernels.fused_cnn import kernel as knl, ref
+    params, x, _ = make_case(g, 1000, seed, DEVICE)
+    print(f" case sweep eval: K={g} B=1000 f32, no residuals")
+    a_in = x
+    for layer in ("conv1", "conv2"):
+        w, b = params[layer]["w"], params[layer]["b"]
+        ak, none = knl.conv_pool_fwd_k(a_in, w, b, residuals=False)
+        ap, _ = ref.conv_pool_fwd_k(a_in, w, b, residuals=False)
+        if none is not None:
+            raise AssertionError("the eval forward wrote residuals")
+        chk.close("conv_pool_fwd_k", f"eval {layer} a (K={g},B=1000)", ak,
+                  ap, exact=True)
+        a_in = ap
+    lk, _ = knl.fc_chain_fwd_k(a_in.reshape(g, 1000, -1), params)
+    lp, _ = ref.fc_chain_fwd_k(a_in.reshape(g, 1000, -1), params)
+    chk.close("fc_chain_fwd_k", f"eval logits (K={g},B=1000)", lk, lp)
 
 
 def check_single(chk: Check, label: str, seed: int, ones: bool = False,
@@ -895,6 +936,8 @@ def main_path():
         if scheme == "opt" and not rows[-1][7] > 0.1:
             raise AssertionError(f"{label} accuracy {rows[-1][7]} is not "
                                  "above chance (0.1) after 5 rounds")
+        if scheme == "opt" and not codec:
+            opt_ms = float(np.median(times[1:]))
         if scheme == "opt":
             steady = times[1:]
             print(f"  {label} ms/round (rounds 2-5): median "
@@ -907,7 +950,7 @@ def main_path():
         raise AssertionError("a kernel of the fused path never launched")
     if bf16_launches() != dict.fromkeys(bf16_launches(), 0):
         raise AssertionError("the f32 fused path launched a bf16 kernel")
-    return got
+    return got, opt_ms
 
 
 POLICIES = (("bf16", {"precision": "bf16"}),
@@ -1235,6 +1278,232 @@ def card_vs_cpu():
     sim_c, rows_c, _ = run_rounds(cfg, "cpu", p0)
     compare("fused single-user", rows_g, rows_c, sim_g.params, sim_c.params,
             PARAM_ATOL, cfg.n_test)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the sweep path (the device round, the sweep engine, the facade)
+# ---------------------------------------------------------------------------
+
+SWEEP_ROUNDS = 5
+SWEEP_CPU_ROUNDS = 2        # card vs CPU: the CPU runs G·K users per step
+
+
+def sweep_panels():
+    """The three panels at the paper's config, rounds cut to 5, with the
+    round programs each must need."""
+    from dataclasses import replace
+    from repro_torch.api import Experiment
+    from repro_torch.core.hsfl import HSFLConfig
+    from repro_torch.core.sweep import fig3c_spec
+    cfg = HSFLConfig(rounds=SWEEP_ROUNDS)
+    return [
+        ("fig3b", Experiment(cfg).with_scheme("opt", b=2.0)
+         .with_scheme("async", b=1.0).with_scheme("discard", b=1.0)
+         .with_seeds(0, 1), 2),
+        ("fig3c", Experiment.from_spec(fig3c_spec(rounds=SWEEP_ROUNDS)[0]),
+         1),
+        ("codec", Experiment(replace(cfg, use_delta_codec=True))
+         .with_scheme("opt", b=2.0).with_scheme("discard", b=1.0), 1)]
+
+
+def expected_sweep_launches(groups, rounds: int) -> dict:
+    """Launches a panel's groups need, whatever their (simulation, config)
+    rows: per round e·S training steps (2 conv fwd, 2 conv bwd, 1 fc fwd,
+    1 fc bwd launches each) and one eval (2 conv fwd + 1 fc fwd); with the
+    codec on a probing program one quantize per epoch and one dequantize
+    per round."""
+    from repro_torch.core.schemes import get_scheme
+    out = {n: 0 for n in REPLACES}
+    for g in groups:
+        steps = rounds * g.base.local_epochs * g.base.steps_per_epoch
+        out["conv_pool_fwd_k"] += 2 * steps + 2 * rounds
+        out["conv_pool_bwd_k"] += 2 * steps
+        out["fc_chain_fwd_k"] += steps + rounds
+        out["fc_chain_bwd_k"] += steps
+        prog = get_scheme(g.program_scheme or g.scheme)
+        if g.base.use_delta_codec and prog.uses_probes:
+            out["quantize_blocks"] += rounds * g.base.local_epochs
+            out["dequantize_blocks"] += rounds
+    return out
+
+
+def run_group(group, device, rounds: int, stream_factory=None,
+              sync_check: bool = False):
+    """One group through the engine's pieces: (metrics, final params (G,
+    ...), ms of the round loop).  ``sync_check`` runs the loop under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host round trip in
+    it raises."""
+    import torch
+    from repro_torch.core import sweep
+    data = sweep._sim_tensors(sweep._stack_sims(group), device)
+    kw = {} if stream_factory is None else {"stream_factory": stream_factory}
+    carry, streams, cfg = sweep._group_inputs(group, data, device, **kw)
+    fn = sweep.build_device_round(**sweep._group_build_kwargs(group))
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        carry, per_round = sweep._scan_rounds(fn, carry, streams, data, cfg,
+                                              rounds)
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode(0)
+    metrics = sweep._read_metrics(per_round, len(group.sims),
+                                  len(group.cfgs))
+    ms = (time.perf_counter() - t0) * 1e3
+    return metrics, carry.params, ms
+
+
+def sweep_busy_share(group):
+    """Wall time and device busy share of one steady round of a group
+    (after a first round), from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import sweep
+    data = sweep._sim_tensors(sweep._stack_sims(group), DEVICE)
+    carry, streams, cfg = sweep._group_inputs(group, data, DEVICE)
+    fn = sweep.build_device_round(**sweep._group_build_kwargs(group))
+    carry, _ = fn(carry, 1, streams, data, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(carry, 2, streams, data, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = _device_us(prof)
+    share = dev_us / 1e6 / wall if dev_us > 0 else None
+    return wall * 1e3, dev_us / 1e3, share, prof
+
+
+def _same_tree(a, b) -> bool:
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+
+
+def check_group(group, fused_ms: float) -> dict:
+    """The per-group checks of the sweep phase (see the module's
+    docstring, phase 9); returns the group's numbers."""
+    from dataclasses import replace
+    from repro_torch.core.streams import TorchStream
+    from repro_torch.utils.tree import tree_leaves
+    label = f"{group.label}[S={len(group.sims)},C={len(group.cfgs)}]"
+    reset_all_launches()
+    m1, p1, ms = run_group(group, DEVICE, SWEEP_ROUNDS, sync_check=True)
+    want = expected_sweep_launches([group], SWEEP_ROUNDS)
+    if all_launches() != want:
+        raise AssertionError(f"sweep {label}: launches {all_launches()} != "
+                             f"expected {want}")
+    m2, p2, _ = run_group(group, DEVICE, SWEEP_ROUNDS)
+    if not all(np.array_equal(m1[k], m2[k]) for k in m1) or \
+            not _same_tree(p1, p2):
+        raise AssertionError(f"sweep {label}: two runs differ")
+    # the row of seed 1 against seed 1 alone
+    dist = group.sims[0][1]
+    pair = replace(group, sims=((0, dist), (1, dist)))
+    alone = replace(group, sims=((1, dist),))
+    mp, pp, _ = run_group(pair, DEVICE, SWEEP_ROUNDS)
+    ma, pa, _ = run_group(alone, DEVICE, SWEEP_ROUNDS)
+    c = len(group.cfgs)
+    if not all(np.array_equal(mp[k][1], ma[k][0]) for k in mp) or \
+            not all(__import__("torch").equal(x[c:], y) for x, y in zip(
+                tree_leaves(pp), tree_leaves(pa))):
+        raise AssertionError(f"sweep {label}: the row of seed 1 differs "
+                             "from seed 1 run alone")
+    # card vs CPU from one CPU-drawn stream
+    short = replace(group, base=replace(group.base,
+                                        rounds=SWEEP_CPU_ROUNDS))
+    drawn = lambda cfg, dev: TorchStream(cfg.seed, dev, draw_on="cpu")  # noqa
+    with ScaleSpy() as spy:
+        mg, pg, _ = run_group(short, DEVICE, SWEEP_CPU_ROUNDS, drawn)
+        mc, pc, _ = run_group(short, "cpu", SWEEP_CPU_ROUNDS, drawn)
+    counts = ("selected", "arrived", "rescued", "delayed", "dropped")
+    if not all(np.array_equal(mg[k], mc[k]) for k in counts):
+        raise AssertionError(
+            f"sweep {label}: card and CPU counts differ: "
+            f"{ {k: (mg[k].tolist(), mc[k].tolist()) for k in counts} }")
+    diff = max(float((x.cpu().double() - y.double()).abs().max())
+               for x, y in zip(tree_leaves(pg), tree_leaves(pc)))
+    tol = PARAM_ATOL + (spy.max if group.base.use_delta_codec else 0.0)
+    dacc = float(np.abs(mg["test_acc"] - mc["test_acc"]).max())
+    if not diff <= tol or not dacc <= 1.0 / group.base.n_test + 1e-9:
+        raise AssertionError(f"sweep {label}: card vs CPU params differ by "
+                             f"{diff} (tol {tol}), accuracy by {dacc}")
+    rows = len(group.sims) * c
+    per_row = ms / SWEEP_ROUNDS / rows
+    wall, dev_ms, share, prof = sweep_busy_share(group)
+    acc = m1["test_acc"][..., -1]
+    print(f"  {label}: {ms / SWEEP_ROUNDS:.1f} ms a round, {per_row:.2f} "
+          f"ms per simulated round per (sim, config) (phase 4 fused opt "
+          f"round {fused_ms:.1f}); launches as expected "
+          f"{ {n: c for n, c in want.items() if c} }; no host round trip "
+          f"in the loop; two "
+          f"runs equal; seed 1's row equals seed 1 alone; card vs CPU "
+          f"({SWEEP_CPU_ROUNDS} rounds) counts equal, params within "
+          f"{diff:.2e} (tol {tol:.2e}); one round under the profiler "
+          f"{wall:.1f} ms wall, {dev_ms:.2f} ms device, busy share "
+          f"{'not measured' if share is None else f'{share:.3f}'}; final "
+          f"test accuracy {acc.round(4).tolist()}")
+    print_top_kernels(prof, 6)
+    return {"round_ms": ms / SWEEP_ROUNDS, "per_row_ms": per_row,
+            "busy": share, "rows": rows, "acc": acc}
+
+
+def sweep_path(fused_ms: float):
+    """Phase 9; returns the launches over the three panels and each
+    group's numbers."""
+    from repro_torch.core.sweep import compile_spec
+    total = {n: 0 for n in REPLACES}
+    numbers = {}
+    for name, ex, n_prog in sweep_panels():
+        groups = compile_spec(ex.to_spec())
+        reset_all_launches()
+        sync()
+        t0 = time.perf_counter()
+        res = ex.run(engine="sweep")          # the card: no device argument
+        sync()
+        wall = time.perf_counter() - t0
+        got = all_launches()
+        want = expected_sweep_launches(groups, SWEEP_ROUNDS)
+        print(f"  panel {name}: {len(res.groups)} groups, {res.n_programs} "
+              f"programs (program ids {[g.program_id for g in res.groups]}),"
+              f" {res.n_simulations} (sim, config) rows, {wall:.2f} s; "
+              f"launches {got}")
+        if res.n_programs != n_prog:
+            raise AssertionError(f"panel {name}: {res.n_programs} programs, "
+                                 f"not {n_prog}")
+        if got != want:
+            raise AssertionError(f"panel {name}: launches {got} != "
+                                 f"expected {want}")
+        for g in res.groups:
+            m = g.metrics
+            if not (np.all(np.isfinite(m["test_loss"]))
+                    and m["test_acc"].shape == (len(g.sims), len(g.cfgs),
+                                                SWEEP_ROUNDS)
+                    and np.all(m["arrived"] + m["dropped"] + m["delayed"]
+                               + m["rescued"] <= m["selected"])):
+                raise AssertionError(f"panel {name}: bad metrics in "
+                                     f"{g.label}")
+        # 5 rounds of lr 0.01 on non-iid clients sit near chance (the fused
+        # opt round: 0.129); the panel's best row must be above it
+        best = max(float(g.metrics["test_acc"][..., -1].max())
+                   for g in res.groups)
+        if not best > 0.1:
+            raise AssertionError(f"panel {name}: best final accuracy {best} "
+                                 "is not above chance (0.1)")
+        for n in total:
+            total[n] += got[n]
+        for group in groups:
+            numbers[f"{name}/{group.label}"] = check_group(group, fused_ms)
+    path = FUSED_CNN + CODEC
+    if min(total[n] for n in path) <= 0:
+        raise AssertionError("a kernel of the sweep path never launched")
+    return total, numbers
 
 
 # ---------------------------------------------------------------------------
@@ -1711,6 +1980,9 @@ def main() -> int:
     chk = Check()
     check_case(chk, "main path", 10, 10, seed=0)
     check_case(chk, "main path", 10, 10, seed=0, bf16=True)
+    check_case(chk, "sweep group", 60, 10, seed=5)
+    check_case(chk, "sweep group", 60, 10, seed=5, bf16=True)
+    check_eval_group(chk)
     check_case(chk, "odd cohort", 3, 7, seed=1)
     check_case(chk, "all-ones ties", 3, 2, seed=2, ones=True)
     check_case(chk, "all-ones ties", 3, 2, seed=2, ones=True, bf16=True)
@@ -1732,7 +2004,7 @@ def main() -> int:
           "call does the row absmax, the scale, the rounding and the clip")
 
     print("== phase 4: fused path (paper config, every scheme, codec)")
-    launches = main_path()
+    launches, fused_ms = main_path()
     share = device_busy_share()
 
     print("== phase 5: policy path (paper config, bf16, single-user, "
@@ -1755,6 +2027,10 @@ def main() -> int:
     timing.update(zoo_timing["bf16"])
     launches.update(zoo_launches)
 
+    print("== phase 9: sweep path (paper config, 5 rounds: Fig. 3(b) "
+          "panel, Fig. 3(c) budget axis, codec panel)")
+    sweep_launches, sweep_numbers = sweep_path(fused_ms)
+
     rows = []
     for n in REPLACES:
         t = timing[n]
@@ -1774,6 +2050,9 @@ def main() -> int:
                         if key.startswith("d80_")})
             row.update({f"f32_{key}": val for key, val in tf.items()
                         if key.startswith("d80_")})
+        if n in FUSED_CNN + CODEC:
+            # the sweep path's three panels (15 group rounds in all)
+            row["sweep_launches"] = sweep_launches[n]
         if n in timing_bf16:
             tb = timing_bf16[n]
             row.update(bf16_launches=launches_bf16[n], bf16_ms=tb["ms"],
@@ -1795,6 +2074,13 @@ def main() -> int:
           f"wall, device busy share "
           f"{'not measured' if serve_share is None else f'{serve_share:.4f}'}"
           f"; launcher {serve_ms['b']:.1f} ms/round without faults")
+    busy = {k: "not measured" if v["busy"] is None else f"{v['busy']:.4f}"
+            for k, v in sweep_numbers.items()}
+    print("sweep groups (paper config), ms per simulated round per (sim, "
+          "config) and busy share: "
+          + ", ".join(f"{k} {v['per_row_ms']:.2f} ms x{v['rows']} busy "
+                      f"{busy[k]}" for k, v in sweep_numbers.items())
+          + f"; fused opt round {fused_ms:.1f} ms")
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,18 @@ Every control decision is a (K,) tensor op in f32, as in the reference, so
 both packages decide the same for the same presampled channel.  The
 reference jits the round and donates its carries; here the global params
 (and the async straggler carry) are updated in place instead.
+
+``build_device_round`` runs the whole control plane on the device: the
+fleet (``channel_lib.FleetState``) moves and fades, users are selected
+(``Scheme.selection_policy``), batches are gathered from the stacked
+client datasets by device indices, the round is evaluated, and nothing is
+read back to the host.  It takes a whole sweep group at once: the
+reference vmaps its round over configs and simulations, which a kernel
+launch cannot be, so here the G = S·C (simulation, config) rows fold into
+the user axis the blocked kernels already take: the group's G·K users
+train with one launch per layer per step, and the eval runs the G models
+at K = G.  Its draws come from the simulations' streams
+(``core/streams.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +40,9 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.channel_lib import (ChannelParams, FleetState,
+                                          fleet_move, fleet_outage_step,
+                                          fleet_rates, fleet_resample_fading)
 from repro_torch.core.opportunistic_sync import snapshot_decision
 from repro_torch.core.schemes import get_scheme, kx, tree_where_k
 from repro_torch.kernels.delta_codec.kernel import (BLOCK, dequantize_blocks,
@@ -37,10 +52,12 @@ from repro_torch.kernels.delta_codec.ops import (stacked_flatten,
 from repro_torch.kernels.fused_cnn.ops import (ForwardPolicy,
                                                make_eval_forward,
                                                make_stacked_epoch_fn,
+                                               make_stacked_eval_forward,
                                                resolve_train_step)
 from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
 
-__all__ = ["RoundStats", "build_fused_round"]
+__all__ = ["RoundStats", "DeviceSimCarry", "DeviceRoundMetrics",
+           "build_fused_round", "build_device_round"]
 
 
 class RoundStats(NamedTuple):
@@ -57,24 +74,39 @@ def _assign_(dst, src) -> None:
         d.copy_(s)
 
 
-def _codec_encode(stacked, params, block: int = BLOCK, bits: int = 8):
-    """Quantize the stacked users' delta from the round-start params into
-    the codec state ``(q (K, M, block), scales (K, M, 1))``: one launch
-    over the ``(K·M, block)`` rows."""
-    delta = tree_map(lambda s, p: s - p.unsqueeze(0), stacked, params)
+def _by_row(stacked, rows):
+    """(G·K, ...) stacked leaves as (G, K, ...) views, one row per base
+    params of ``rows`` (leaves (G, ...))."""
+    return tree_map(lambda s, p: s.view(p.shape[0], -1, *p.shape[1:]),
+                    stacked, rows)
+
+
+def _codec_encode(stacked, rows, block: int = BLOCK, bits: int = 8):
+    """Quantize every user's delta from its row's round-start params into
+    the codec state ``(q (N, M, block), scales (N, M, 1))``: stacked
+    leaves (N = G·K, ...), ``rows`` leaves (G, ...) (G = 1: the fused
+    round's cohort); one launch over the ``(N·M, block)`` rows."""
+    delta = tree_map(lambda s, d, p: (d - p.unsqueeze(1)).view(s.shape),
+                     stacked, _by_row(stacked, rows), rows)
     flat, _ = stacked_flatten(delta, block=block)
-    k, rows, blk = flat.shape
-    q, s = quantize_blocks(flat.reshape(k * rows, blk), bits=bits)
-    return q.reshape(k, rows, blk), s.reshape(k, rows, 1)
+    n, m, blk = flat.shape
+    q, s = quantize_blocks(flat.reshape(n * m, blk), bits=bits)
+    return q.reshape(n, m, blk), s.reshape(n, m, 1)
 
 
-def _codec_decode(q, s, stacked_like, params):
-    """Dequantize the codec state back to a stacked params tree."""
-    k, rows, blk = q.shape
-    flat = dequantize_blocks(q.reshape(k * rows, blk),
-                             s.reshape(k * rows, 1))
-    delta = stacked_unflatten(flat.reshape(k, rows, blk), stacked_like)
-    return tree_map(lambda d, p: p.unsqueeze(0) + d, delta, params)
+def _codec_decode(q, s, stacked_like, rows):
+    """Dequantize the codec state back to a stacked params tree (each
+    user's row params plus its delta): one launch."""
+    n, m, blk = q.shape
+    flat = dequantize_blocks(q.reshape(n * m, blk), s.reshape(n * m, 1))
+    delta = stacked_unflatten(flat.reshape(n, m, blk), stacked_like)
+    return tree_map(lambda d, r, p: (r + p.unsqueeze(1)).view(d.shape),
+                    delta, _by_row(delta, rows), rows)
+
+
+def _one_row(params):
+    """Unstacked params as a single row (1, ...)."""
+    return tree_map(lambda p: p.unsqueeze(0), params)
 
 
 def _codec_zero_state(stacked, block: int = BLOCK):
@@ -185,8 +217,8 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
                 ok, tau_extra = snapshot_decision(chan["valid"], outage,
                                                   tau, tau_extra)
                 if use_codec:
-                    q_new, s_new = _codec_encode(stacked, params, codec_block,
-                                                 codec_bits)
+                    q_new, s_new = _codec_encode(stacked, _one_row(params),
+                                                 codec_block, codec_bits)
                     snap = (torch.where(kx(ok, q_new), q_new, snap[0]),
                             torch.where(kx(ok, s_new), s_new, snap[1]))
                 else:
@@ -209,7 +241,8 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
                 params, xs, ys, chan)
             arrived = _final_arrival(chan)
             if use_codec and scheme.uses_probes:
-                snap = _codec_decode(snap[0], snap[1], stacked, params)
+                snap = _codec_decode(snap[0], snap[1], stacked,
+                                     _one_row(params))
             new_params, rescued = scheme.aggregate(params, stacked, snap,
                                                    has_snap, arrived)
             delayed = scheme.delayed_out(chan["valid"], arrived)
@@ -246,5 +279,257 @@ def build_fused_round(*, scheme: Any, local_epochs: int, steps_per_epoch: int,
         dropped = chan["valid"] & ~arrived & ~rescued & ~delayed_new
         return (params, delayed_stack, delayed_mask,
                 RoundStats(arrived, rescued, delayed_new, dropped, nsent))
+
+    return round_fn
+
+
+# ---------------------------------------------------------------------------
+# the on-device round over a sweep group of G = S·C rows
+# ---------------------------------------------------------------------------
+
+class DeviceSimCarry(NamedTuple):
+    """What a sweep group carries from round to round.  Row g = s·C + c is
+    simulation s under config c.  The fleet is kept once per simulation:
+    no fleet transition reads a config (the reference's per-config copies
+    are equal), only the rates see a config's bandwidth.  The straggler
+    stack is the async carry; other schemes carry it untouched."""
+    params: Any                  # (G, ...) global params
+    fleet: FleetState            # (S, N, ...)
+    delayed: Any                 # (G, K, ...) straggler params
+    delayed_mask: torch.Tensor   # (G, K) bool
+
+
+class DeviceRoundMetrics(NamedTuple):
+    """Per-round values of each row (G,), on the device until the sweep
+    reads them."""
+    selected: torch.Tensor       # int32: users scheduled this round
+    arrived: torch.Tensor        # int32: finals that made it (Alg. 2 l. 14)
+    rescued: torch.Tensor        # int32: snapshot substitutions
+    delayed: torch.Tensor        # int32: carried to next round (async)
+    dropped: torch.Tensor        # int32: contributed nothing
+    bytes_sent: torch.Tensor     # f32: uplink bytes this round
+    test_loss: torch.Tensor      # f32
+    test_acc: torch.Tensor       # f32
+
+
+def _rep(t: torch.Tensor, n: int) -> torch.Tensor:
+    """Each row of t repeated n times on a new copy: (A, ...) -> (A·n, ...)
+    (``repeat_interleave`` with a count would read a size back)."""
+    return t.unsqueeze(1).expand(t.shape[0], n, *t.shape[1:]).contiguous() \
+        .view(t.shape[0] * n, *t.shape[1:])
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed pairwise order (zero-padded to a
+    power of two, then halved), whatever the leading shape: a row's metric
+    does not depend on how many rows share the call, as a library
+    reduction's order may."""
+    n = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, (1 << (n - 1).bit_length()) - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def build_device_round(*, scheme: Any, local_epochs: int,
+                       steps_per_epoch: int, batch_size: int, lr: float,
+                       k_select: int, channel: ChannelParams,
+                       model_bytes: float, ue_model_fraction: float,
+                       compress_ratio: float = 1.0,
+                       use_codec: bool = False,
+                       speed_mps: float = 15.0, epoch_seconds: float = 1.0,
+                       schedule_override: Tuple[int, ...] = (),
+                       async_alpha: float = 0.4, async_a: float = 0.5,
+                       max_sl: int | None = None,
+                       act_bytes_per_sample: float = 3136.0,
+                       codec_block: int = BLOCK, codec_bits: int = 8,
+                       forward: Any = None) -> Callable:
+    """One HSFL round of a sweep group with the whole control plane on the
+    device (``build_device_round`` of the reference).
+
+    Returns ``round_fn(carry, round_t, stream, sim, cfg) -> (carry,
+    metrics)``:
+
+    - ``carry``: ``DeviceSimCarry`` over the group's G = S·C rows;
+    - ``round_t``: the round, from 1 (the streams key their batches by it);
+    - ``stream``: a ``streams.GroupStream`` of the S simulations;
+    - ``sim``: per-simulation tensors on the device: ``client_x``
+      (S, N, M, H, W, C), ``client_y`` (S, N, M) int64, ``client_len``,
+      ``flops``, ``samples`` (S, N), ``test_x`` (S, T, H, W, C), ``test_y``
+      (S, T) int64;
+    - ``cfg``: ``b``, ``tau_max``, ``bandwidth_ratio``, (C,) f32.
+
+    Per round: fresh fading, the scheme's selection (one greedy per row),
+    then ``local_epochs`` epochs in lockstep.  Every epoch the fleets move,
+    the rates and outages of the selected users are read, a batch of
+    ``steps_per_epoch`` x ``batch_size`` samples is gathered for each of
+    the G·K users, and the whole folded cohort takes its SGD steps through
+    ``ops.make_stacked_epoch_fn`` (one launch per layer per step, whatever
+    G is).  The probes run masked every epoch, since the schedule depends
+    on each row's b (``Scheme.probe_schedule``); with ``use_codec`` every
+    epoch quantizes all G·K users' deltas in one launch and the round
+    dequantizes once.  The final upload reads one more outage step, the
+    scheme aggregates each row (``torch.func.vmap`` over its (K, ...)
+    ``aggregate``), and the G new models are evaluated at K = G
+    (``ops.make_stacked_eval_forward``).  ``compress_ratio`` scales every
+    payload (selection energy, the eq. 14/15 budgets, the bytes).
+
+    ``forward`` is the group's ``ForwardPolicy`` (``None``: the default).
+    The round reads nothing back to the host: no ``.item()``, no boolean
+    indexing, no tensor made from host data.
+    """
+    policy = (forward or ForwardPolicy()).validate()
+    epoch_all = make_stacked_epoch_fn(policy, lr)
+    eval_k = make_stacked_eval_forward(policy)
+    scheme = get_scheme(scheme)
+    aw = float(async_alpha) * 2.0 ** (-float(async_a))
+    eff_model_bytes = model_bytes * compress_ratio
+    eff_ue_bytes = eff_model_bytes * ue_model_fraction
+    use_codec = bool(use_codec) and scheme.supports_codec
+    override = tuple(schedule_override) or None
+    K, p = k_select, channel
+    nb = steps_per_epoch * batch_size
+
+    def aggregate(params, stacked, snap, has_snap, arrived, delayed,
+                  delayed_mask):
+        return scheme.aggregate(params, stacked, snap, has_snap, arrived,
+                                delayed=delayed, delayed_mask=delayed_mask,
+                                async_weight=aw, k_carry=K)
+
+    aggregate_rows = torch.func.vmap(aggregate)
+
+    @torch.no_grad()
+    def round_fn(carry: DeviceSimCarry, round_t: int, stream, sim, cfg):
+        params, fleet = carry.params, carry.fleet
+        S, N = fleet.k_db.shape
+        C = cfg["b"].shape[0]
+        G = S * C
+        dev = fleet.k_db.device
+        b, tau_max = cfg["b"].repeat(S), cfg["tau_max"].repeat(S)
+        bw = cfg["bandwidth_ratio"].view(1, C, 1)
+        row_sim = _rep(torch.arange(S, device=dev), C)          # (G,)
+
+        def rates(fl):                                           # (G, N)
+            return fleet_rates(fl._replace(pos=fl.pos[:, None],
+                                           k_db=fl.k_db[:, None]),
+                               p, bw).reshape(G, N)
+
+        def pick(t):                                             # (G, K)
+            return torch.gather(t, 1, sel)
+
+        # -- schedule (Alg. 1 l. 3-5): fresh fading, greedy selection ------
+        fleet = fleet_resample_fading(
+            fleet, stream.fleet_uniform(N, *p.k_db_range))
+        rates0 = rates(fleet)
+        sel, mode_sl, valid, n_taken, tt_fl, tt_sl = scheme.selection_policy(
+            rates0, _rep(sim["flops"], C), _rep(sim["samples"], C), b=b,
+            tau_max=tau_max, k_select=K, model_bytes=eff_model_bytes,
+            ue_model_bytes=eff_ue_bytes, local_epochs=local_epochs,
+            max_sl=max_sl, act_bytes_per_sample=act_bytes_per_sample)
+        train_time = torch.where(valid, torch.where(mode_sl, pick(tt_sl),
+                                                    pick(tt_fl)), 1e9)
+        payload_bits = torch.where(mode_sl, eff_ue_bytes,
+                                   eff_model_bytes) * 8.0      # eq. (15) m_i
+        tau_extra0 = torch.clamp_min(b - 1.0, 0.0)[:, None] * payload_bits \
+            / torch.clamp_min(pick(rates0), 1e-9)               # eq. (14)
+
+        # -- local training: the G·K users of the group in lockstep --------
+        stacked = tree_map(lambda a: _rep(a, K), params)        # (G·K, ...)
+        clen = torch.clamp_min(pick(_rep(sim["client_len"], C)), 1)
+        xshape = sim["client_x"].shape[3:]
+        M = sim["client_x"].shape[2]
+        client_x = sim["client_x"].reshape(-1, *xshape)
+        client_y = sim["client_y"].reshape(-1)
+        base = (row_sim[:, None] * N + sel) * M                 # (G, K)
+        if use_codec:
+            snap = _codec_zero_state(stacked, codec_block)
+        elif scheme.uses_probes:
+            snap = tree_map(lambda a: _rep(a, K), params)
+        else:
+            snap = stacked
+        has_snap = torch.zeros((G, K), dtype=torch.bool, device=dev)
+        nsent = torch.zeros((G, K), dtype=torch.int32, device=dev)
+        tau_extra = tau_extra0
+        for e_t in range(1, local_epochs + 1):
+            fleet = fleet_move(fleet, p, speed_mps, epoch_seconds,
+                               stream.fleet_normal((N, 3)))
+            rate_e = pick(rates(fleet))
+            fleet, bad = fleet_outage_step(fleet, p,
+                                           stream.fleet_uniform(N))
+            out_e = pick(_rep(bad, C))
+            idx = (base[..., None]
+                   + stream.batch_indices(round_t, e_t, clen, nb)).reshape(-1)
+            xs = client_x.index_select(0, idx).reshape(
+                G * K, steps_per_epoch, batch_size, *xshape)
+            ys = client_y.index_select(0, idx).reshape(
+                G * K, steps_per_epoch, batch_size)
+            stacked = epoch_all(stacked, xs, ys)
+            if scheme.uses_probes:
+                sched = scheme.probe_schedule(e_t, local_epochs, b,
+                                              override=override)
+                tau = payload_bits / torch.clamp_min(rate_e, 1e-9)
+                ok, tau_extra = snapshot_decision(valid & sched[:, None],
+                                                  out_e, tau, tau_extra)
+                okf = ok.reshape(G * K)
+                if use_codec:
+                    q_new, s_new = _codec_encode(stacked, params,
+                                                 codec_block, codec_bits)
+                    snap = (torch.where(kx(okf, q_new), q_new, snap[0]),
+                            torch.where(kx(okf, s_new), s_new, snap[1]))
+                else:
+                    snap = tree_where_k(okf, stacked, snap)
+                has_snap = has_snap | ok
+                nsent = nsent + ok.to(torch.int32)
+
+        # -- final upload (Alg. 2 l. 14): no extra move ---------------------
+        rate_f = pick(rates(fleet))
+        fleet, bad_f = fleet_outage_step(fleet, p, stream.fleet_uniform(N))
+        tau_f = payload_bits / torch.clamp_min(rate_f, 1e-9)
+        fits = train_time + scheme.final_slack(tau_extra0) + tau_f \
+            <= tau_max[:, None]
+        arrived = valid & ~pick(_rep(bad_f, C)) & fits
+
+        # -- aggregation: the scheme's (K, ...) aggregate on every row ------
+        if use_codec:
+            snap = _codec_decode(snap[0], snap[1], stacked, params)
+
+        new_params, rescued = aggregate_rows(
+            params, _by_row(stacked, params), _by_row(snap, params),
+            has_snap, arrived, carry.delayed, carry.delayed_mask)
+        delayed_new = scheme.delayed_out(valid, arrived)
+        dropped = valid & ~arrived & ~rescued & ~delayed_new
+        if scheme.carries_delayed:
+            new_carry = DeviceSimCarry(new_params, fleet,
+                                       _by_row(stacked, params), delayed_new)
+        else:
+            new_carry = DeviceSimCarry(new_params, fleet, carry.delayed,
+                                       carry.delayed_mask)
+
+        # -- byte accounting + eval -----------------------------------------
+        # (every sum over a row runs in _row_sum's fixed order)
+        events = nsent + arrived.to(torch.int32)
+        bytes_sent = _row_sum(torch.where(valid, payload_bits / 8.0 * events,
+                                          0.0))
+        act = act_bytes_per_sample * pick(_rep(sim["samples"], C))
+        bytes_sent = bytes_sent + _row_sum(
+            torch.where(valid & mode_sl & (events > 0), act, 0.0))
+        test_x = sim["test_x"] if C == 1 else _rep(sim["test_x"], C)
+        test_y = sim["test_y"] if C == 1 else _rep(sim["test_y"], C)
+        logits = eval_k(new_params, test_x)                     # (G, T, V)
+        top = torch.amax(logits, dim=-1, keepdim=True)
+        logz = torch.log(_row_sum(torch.exp(logits - top))) + top[..., 0]
+        gold = torch.gather(logits, -1, test_y[..., None])[..., 0]
+        n_test = test_y.shape[-1]
+        hits = (torch.argmax(logits, -1) == test_y).to(torch.float32)
+        count = lambda m: torch.sum(m.to(torch.int32), dim=1,  # noqa: E731
+                                    dtype=torch.int32)
+        metrics = DeviceRoundMetrics(
+            selected=n_taken, arrived=count(arrived),
+            rescued=count(rescued), delayed=count(delayed_new),
+            dropped=count(dropped), bytes_sent=bytes_sent.float(),
+            test_loss=_row_sum(logz - gold) / n_test,
+            test_acc=_row_sum(hits) / n_test)
+        return new_carry, metrics
 
     return round_fn

@@ -112,6 +112,40 @@ def _heterogeneous_devices(n: int, rng: np.random.Generator,
             for _ in range(n)]
 
 
+def build_sim_arrays(cfg: HSFLConfig, pad_len: int | None = None) -> Dict:
+    """Per-simulation constant arrays of the on-device engine (numpy),
+    drawn with the host simulation's seeding: data and partition from
+    ``cfg.seed``, device FLOPS from ``default_rng(cfg.seed)`` in
+    ``HSFLSimulation``'s draw order.  Client datasets are zero-padded to
+    ``pad_len`` (default: the longest client), so that simulations stack."""
+    rng = np.random.default_rng(cfg.seed)
+    full = make_digits(cfg.n_train + cfg.n_test, seed=cfg.seed)
+    test = Dataset(full.x[cfg.n_train:], full.y[cfg.n_train:])
+    train = Dataset(full.x[:cfg.n_train], full.y[:cfg.n_train])
+    clients = partition(train, cfg.n_uavs, cfg.distribution, cfg.seed)
+    devices = _heterogeneous_devices(cfg.n_uavs, rng, cfg.flops_range)
+
+    m = pad_len or max(len(c) for c in clients)
+    xshape = clients[0].x.shape[1:]
+    client_x = np.zeros((cfg.n_uavs, m) + xshape, np.float32)
+    client_y = np.zeros((cfg.n_uavs, m), clients[0].y.dtype)
+    client_len = np.zeros((cfg.n_uavs,), np.int32)
+    for i, c in enumerate(clients):
+        k = min(len(c), m)
+        client_x[i, :k] = c.x[:k]
+        client_y[i, :k] = c.y[:k]
+        client_len[i] = k
+    return {
+        "client_x": client_x,
+        "client_y": client_y,
+        "client_len": client_len,
+        "flops": np.array([d.flops_per_sec for d in devices], np.float32),
+        "samples": np.array([len(c) for c in clients], np.float32),
+        "test_x": test.x.astype(np.float32),
+        "test_y": test.y,
+    }
+
+
 def _epoch_indices(n: int, cfg: HSFLConfig, rng: np.random.Generator) -> np.ndarray:
     """Fixed-shape (steps, bs) batch indices for one local epoch."""
     need = cfg.steps_per_epoch * cfg.batch_size

@@ -16,19 +16,27 @@ and the aggregation (``aggregate`` on stacked (K, ...) tensors,
                 coordinate-wise trimmed mean, median, or a norm-clipped
                 mean as the aggregate.
 
+The device engines also ask a scheme for ``selection_policy`` (the greedy
+on the device, ``selection.select_users_device``) and, in a sweep, for
+``lowered_program`` (discard at b=1 runs opt's round).  A scheme carries
+its sweep ``pins`` (``with_pins``); two schemes are equal when their class
+and pins are.  The aggregates take one row's (K, ...) stack; the device
+round applies them to each (simulation, config) row with
+``torch.func.vmap``, so they must stay plain torch ops.
+
 The robust aggregates push invalid slots to +inf before sorting and select
-with ``torch.where``, never with a multiply (+inf · 0 is NaN).  The
-device-side ``selection_policy`` waits for the on-device round.
+with ``torch.where``, never with a multiply (+inf · 0 is NaN).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.aggregation import fedavg, fedasync_merge, fedasync_weight
-from repro_torch.core.selection import schedule_users
+from repro_torch.core.selection import schedule_users, select_users_device
 from repro_torch.core.transmission import scheduled_epochs
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -155,12 +163,14 @@ def async_merge(params, stacked, delayed_stack, delayed_mask, arrived,
 
 
 def probe_schedule_mask(e_t: int, local_epochs: int, b) -> torch.Tensor:
-    """``transmission.scheduled_epochs`` membership for a tensor budget b:
-    e_t ≡ 0 (mod period), e_t < e and e_t ≤ (b−1)·period, branch-free."""
+    """``transmission.scheduled_epochs`` membership for a budget b (a number
+    or a tensor of any shape, e.g. one b per config row): e_t ≡ 0
+    (mod period), e_t < e and e_t ≤ (b−1)·period, branch-free, on b's
+    device."""
     bf = torch.as_tensor(b, dtype=torch.float32)
     period = torch.clamp(torch.round(local_epochs / torch.clamp_min(bf, 1.0)),
                          1.0, float(local_epochs))
-    et = torch.as_tensor(e_t, dtype=torch.float32)
+    et = float(e_t)
     return ((torch.remainder(et, period) == 0) & (et < local_epochs)
             & (et <= (bf - 1.0) * period))
 
@@ -169,13 +179,26 @@ def probe_schedule_mask(e_t: int, local_epochs: int, b) -> torch.Tensor:
 # the Scheme protocol
 # ---------------------------------------------------------------------------
 
+@dataclass(frozen=True)
 class Scheme:
     """One transmission policy.  The base class is the discard/sync family:
-    no probes, no straggler carry, FedAvg over whatever arrived."""
+    no probes, no straggler carry, FedAvg over whatever arrived.
+
+    ``pins`` carries per-scheme sweep pins (the ``("opt", {"b": 2.0})``
+    entry form of ``SweepSpec``); ``name`` and the engine facts are class
+    attributes, so equality and hashing are by (class, pins)."""
+    pins: Tuple[Tuple[str, Any], ...] = ()
+
     name = "base"
     uses_probes = False        # probe/snapshot block runs
     carries_delayed = False    # the async straggler carry is live
     supports_codec = False     # snapshots exist -> codec state is meaningful
+
+    def with_pins(self, **pins) -> "Scheme":
+        """A copy with sweep pins (b/τ_max/group statics) attached."""
+        merged = dict(self.pins)
+        merged.update(pins)
+        return replace(self, pins=tuple(sorted(merged.items())))
 
     def static_schedule(self, local_epochs: int, b: int,
                         override: Sequence[int] = ()) -> Tuple[int, ...]:
@@ -184,8 +207,21 @@ class Scheme:
 
     def probe_schedule(self, e_t, local_epochs: int, b,
                        override=None) -> torch.Tensor:
-        """Is local epoch ``e_t`` a scheduled probe under budget ``b``?"""
-        return torch.zeros((), dtype=torch.bool)
+        """Is local epoch ``e_t`` a scheduled probe under budget ``b`` (a
+        tensor of per-row budgets: one answer per row, on b's device)?"""
+        return torch.zeros_like(torch.as_tensor(b), dtype=torch.bool)
+
+    def selection_policy(self, rates0, flops, samples, *, b, tau_max,
+                         k_select: int, model_bytes: float,
+                         ue_model_bytes: float, local_epochs: int,
+                         max_sl=None, **lat_kw):
+        """Which users train this round (device engines): the greedy of
+        Alg. 1 l. 3-5 over (G, N) rows.  Returns ``select_users_device``'s
+        fixed-width slot arrays."""
+        return select_users_device(
+            rates0, flops, samples, b=b, tau_max=tau_max, k_select=k_select,
+            model_bytes=model_bytes, ue_model_bytes=ue_model_bytes,
+            local_epochs=local_epochs, max_sl=max_sl, **lat_kw)
 
     def selection_policy_host(self, rates0, devices, workloads,
                               model_bytes: float, ue_model_bytes: float,
@@ -218,6 +254,11 @@ class Scheme:
     def delayed_out(self, valid, arrived) -> torch.Tensor:
         """Which users enter next round's staleness carry."""
         return torch.zeros_like(arrived)
+
+    def lowered_program(self, b_vals: Tuple[float, ...]) -> str:
+        """The scheme whose round program runs a sweep group pinned to the
+        budgets ``b_vals``: normally this one."""
+        return self.name
 
 
 SCHEMES: Dict[str, Scheme] = {}
@@ -259,7 +300,12 @@ def get_scheme(scheme) -> Scheme:
 
 @register_scheme("discard")
 class DiscardScheme(Scheme):
-    """Delayed updates dropped (the b=1 / dashed baseline)."""
+    """Delayed updates dropped (the b=1 / dashed baseline).  At b=1 it is
+    opt with zero probes (no schedule, no eq. 14 allowance, so no
+    snapshot), and a sweep runs its group on opt's round."""
+
+    def lowered_program(self, b_vals: Tuple[float, ...]) -> str:
+        return "opt" if tuple(b_vals) == (1.0,) else self.name
 
 
 @register_scheme("sync")
@@ -289,7 +335,10 @@ class OptScheme(Scheme):
     def probe_schedule(self, e_t, local_epochs: int, b,
                        override=None) -> torch.Tensor:
         if override is not None:
-            return torch.any(torch.as_tensor(override) == e_t)
+            # the manual schedule (Sec. III-B) does not depend on b
+            return torch.full_like(torch.as_tensor(b), int(e_t) in
+                                   tuple(int(o) for o in override),
+                                   dtype=torch.bool)
         return probe_schedule_mask(e_t, local_epochs, b)
 
     def _contributions(self, contribs, snapshots, has_snap, arrived):

@@ -1,16 +1,19 @@
-"""User selection + FL/SL scheduling, Alg. 1 lines 3–5 (a copy of the host
-side of ``repro/core/selection.py``).
+"""User selection + FL/SL scheduling, Alg. 1 lines 3–5
+(``repro/core/selection.py``).
 
 ``schedule_users`` is the host greedy the fused round runs every round;
-``user_latency_energy`` is its vectorized eqs. (9)–(13).  The on-device
-``select_users_jax`` twin waits for the device-round slice.
+``user_latency_energy`` is its vectorized eqs. (9)–(13) (numpy or torch);
+``select_users_device`` is the same greedy on the device, the counterpart
+of the reference's ``select_users_jax``, over a leading batch axis G of
+(simulation, config) rows whose b, τ_max and rates differ.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import latency as lat
 
@@ -86,7 +89,8 @@ def user_latency_energy(rates0, flops, samples, *, b, model_bytes,
 
     Returns (fl_lat, sl_lat, fl_en, sl_en, tt_fl, tt_sl).
     """
-    r0 = xp.maximum(rates0, 1e-9)
+    r0 = (torch.clamp_min(rates0, 1e-9) if xp is torch
+          else xp.maximum(rates0, 1e-9))
     tt_fl = local_epochs * samples * flops_per_sample / flops
     tt_sl = local_epochs * samples * (
         ue_fraction * flops_per_sample / flops
@@ -101,3 +105,87 @@ def user_latency_energy(rates0, flops, samples, *, b, model_bytes,
     ue_t = local_epochs * samples * ue_fraction * flops_per_sample / flops
     sl_en = ue_t * power_compute_w + up_sl * power_tx_w
     return fl_lat, sl_lat, fl_en, sl_en, tt_fl, tt_sl
+
+
+def _rows(v, g: int, device) -> torch.Tensor:
+    """A per-row scalar (float, 0-d or (G,) tensor) as a (G, 1) f32 column
+    (a Python number becomes a fill on ``device``, never a copy)."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((g, 1), float(v), device=device)
+    return v.to(torch.float32).reshape(-1, 1).expand(g, 1)
+
+
+def select_users_device(rates0, flops, samples, *, b, tau_max,
+                        k_select: int, model_bytes: float,
+                        ue_model_bytes: float, local_epochs: int,
+                        max_sl: int | None = None, **lat_kw) -> Tuple:
+    """``schedule_users`` on the device for G rows at once.
+
+    rates0, flops, samples: (G, N) f32 (or (N,) for one row); ``b`` and
+    ``tau_max`` per row ((G,) tensors or scalars).  Returns fixed-width
+    slot arrays: ``sel`` (G, K) int64 user indices in greedy order,
+    ``mode_sl`` (G, K) bool, ``valid`` (G, K) bool (slot occupied),
+    ``n_taken`` (G,) int32, and ``tt_fl``/``tt_sl`` (G, N) training times.
+    Invalid slots point at user 0.  The greedy walks the N users in
+    utility order (a stable sort of −utility, infeasible users at −inf),
+    one step per user on (G,) vectors; on an fl_en == sl_en tie it takes
+    FL.  No value is read back to the host.
+    """
+    one = rates0.dim() == 1
+    if one:
+        rates0, flops, samples = rates0[None], flops[None], samples[None]
+    if max_sl is None:
+        max_sl = k_select // 2
+    g, n = rates0.shape
+    dev = rates0.device
+    b_col, tau_col = _rows(b, g, dev), _rows(tau_max, g, dev)
+    fl_lat, sl_lat, fl_en, sl_en, tt_fl, tt_sl = user_latency_energy(
+        rates0, flops, samples, b=b_col, model_bytes=model_bytes,
+        ue_model_bytes=ue_model_bytes, local_epochs=local_epochs,
+        xp=torch, **lat_kw)
+
+    feas_fl = fl_lat <= tau_col
+    feas_sl = sl_lat <= tau_col
+    feas_any = feas_fl | feas_sl
+    inf = torch.inf
+    best_en = torch.minimum(torch.where(feas_fl, fl_en, inf),
+                            torch.where(feas_sl, sl_en, inf))
+    utility = torch.where(feas_any,
+                          samples / torch.clamp_min(best_en, 1e-9), -inf)
+    order = torch.argsort(-utility, dim=1, stable=True)
+    prefer_sl = feas_sl & (~feas_fl | (sl_en < fl_en))
+
+    # the greedy, one user at a time in utility order
+    p_sl = torch.gather(prefer_sl, 1, order)
+    f_fl = torch.gather(feas_fl, 1, order)
+    f_any = torch.gather(feas_any, 1, order)
+    cnt = torch.zeros(g, dtype=torch.int32, device=dev)
+    slu = torch.zeros(g, dtype=torch.int32, device=dev)
+    take, take_sl = [], []
+    for i in range(n):
+        room = cnt < k_select
+        capped = slu >= max_sl
+        t_sl = p_sl[:, i] & ~capped
+        t_fl = f_fl[:, i] & (~p_sl[:, i] | capped)
+        tk = room & f_any[:, i] & (t_sl | t_fl)
+        t_sl = tk & t_sl
+        cnt = cnt + tk.to(torch.int32)
+        slu = slu + t_sl.to(torch.int32)
+        take.append(tk)
+        take_sl.append(t_sl)
+    take = torch.stack(take, dim=1)
+    take_sl = torch.stack(take_sl, dim=1)
+
+    # pack the taken users (greedy order) into K fixed slots (n may be < K)
+    rank = torch.cumsum(take.to(torch.int64), dim=1) - 1
+    slot_key = torch.where(take, rank, n + 1)
+    k_eff = min(k_select, n)
+    pick = torch.argsort(slot_key, dim=1, stable=True)[:, :k_eff]
+    sel = torch.zeros((g, k_select), dtype=torch.int64, device=dev)
+    mode_sl = torch.zeros((g, k_select), dtype=torch.bool, device=dev)
+    sel[:, :k_eff] = torch.gather(order, 1, pick)
+    mode_sl[:, :k_eff] = torch.gather(take_sl, 1, pick)
+    valid = torch.arange(k_select, device=dev)[None] < cnt[:, None]
+    sel = torch.where(valid, sel, 0)
+    out = (sel, mode_sl & valid, valid, cnt, tt_fl, tt_sl)
+    return tuple(o[0] for o in out) if one else out

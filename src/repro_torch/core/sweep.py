@@ -1,0 +1,431 @@
+"""The sweep engine: whole Fig. 3 panels on the device
+(``repro/core/sweep.py``).
+
+A ``SweepSpec`` declares a grid: schemes (with their pins), seeds x
+distributions (the simulation rows) and b x τ_max x bandwidth_ratio (the
+config columns).  ``compile_spec`` turns it into groups, exactly as the
+reference does: one group per scheme entry, statics pinned per group, and
+a b=1 discard group lowered onto the opt program (discard is opt with zero
+probes), so a Fig. 3(b) panel needs 2 round programs, not 3.
+
+The reference compiles one program per group: rounds under ``lax.scan``,
+configs and simulations under ``vmap``.  The port cannot vmap a kernel
+launch, so it folds both vmapped axes into the user axis of the blocked
+kernels (``fused_round.build_device_round``): a group's S simulations x C
+configs train as one cohort of S·C·K users, one launch per layer per
+step, and its rounds run as a Python loop that reads nothing back to the
+host.  The metrics come back to numpy once per group.
+
+Randomness: each simulation draws from its own stream (``core/streams``),
+seeded from its seed, so a row does not depend on the rest of its group.
+The default streams are ``torch.Generator``s: a sweep is seeded and
+reproducible, but its draws are not the reference's (a test can replay
+those through ``stream_factory``).  Datasets, partitions and device FLOPS
+are the host runs' (``hsfl.build_sim_arrays``); the initial params are
+the port's ``init_cnn(seed)``, as in ``HSFLSimulation``.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import dataclass, field, replace
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.channel_lib import fleet_init
+from repro_torch.core.fused_round import (DeviceRoundMetrics, DeviceSimCarry,
+                                          _rep, build_device_round)
+from repro_torch.core.hsfl import (HSFLConfig, build_sim_arrays,
+                                   model_compress_ratio)
+from repro_torch.core.metrics import RoundLog, SimLog
+from repro_torch.core.schemes import get_scheme
+from repro_torch.core.streams import GroupStream, torch_stream
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_cnn.ops import ForwardPolicy
+from repro_torch.utils.tree import tree_map
+
+# fields of HSFLConfig a sweep varies per config column
+CFG_AXES = ("b", "tau_max", "bandwidth_ratio")
+
+# HSFLConfig fields a scheme entry may pin as group statics: they fork
+# another round program (the scheme itself is the first of them)
+GROUP_STATICS = ("use_delta_codec", "codec_block", "codec_bits", "kernel",
+                 "precision", "block_k", "batch_users")
+
+# what compile_spec writes into ``group.base.b`` when b is swept on the
+# config axis: nothing static may read it
+B_SWEPT = -1
+
+
+@dataclass(frozen=True)
+class SweepSpec:
+    """A declarative experiment grid (one Fig. 3 panel, typically).
+
+    ``schemes`` entries are registered names (``"opt"``), ``Scheme``
+    objects with their pins (``get_scheme("opt").with_pins(b=2.0)``) or
+    ``("opt", {"b": 2})`` tuples.  ``b``/``tau_max``/``bandwidth_ratio``
+    form the config columns (their product); ``seeds`` x ``distributions``
+    the simulation rows."""
+    base: HSFLConfig = field(default_factory=HSFLConfig)
+    seeds: Tuple[int, ...] = (0,)
+    schemes: Tuple = ()                  # () -> (base.scheme,)
+    distributions: Tuple[str, ...] = ()  # () -> (base.distribution,)
+    b: Tuple[float, ...] = ()            # () -> (base.b,)
+    tau_max: Tuple[float, ...] = ()      # () -> (base.tau_max,)
+    bandwidth_ratio: Tuple[float, ...] = ()   # () -> (1.0,)
+
+
+@dataclass(frozen=True)
+class CompiledGroup:
+    """One result slice of a SweepSpec: fixed statics, stacked axes.
+    ``program_scheme`` is the scheme whose round runs the group (discard
+    pinned at b=1 runs opt's); ``label`` tells same-scheme groups apart."""
+    scheme: str
+    base: HSFLConfig                      # statics for this group
+    sims: Tuple[Tuple[int, str], ...]     # (seed, distribution) per row
+    cfgs: Tuple[Dict[str, float], ...]    # config values per column
+    label: str = ""
+    program_scheme: str = ""
+
+
+def compile_spec(spec: SweepSpec,
+                 lower_discard: bool = True) -> List[CompiledGroup]:
+    """SweepSpec -> groups.  Pins of ``GROUP_STATICS`` fields fork the
+    group's statics, pins of ``CFG_AXES`` fix that axis for the group, any
+    other pin raises.  ``base.b`` is pinned when the group has one b and
+    set to ``B_SWEPT`` when b is swept (then a ``schedule_override``
+    raises).  ``lower_discard=False`` keeps discard's own program."""
+    schemes = spec.schemes or (spec.base.scheme,)
+    dists = spec.distributions or (spec.base.distribution,)
+    sims = tuple(itertools.product(spec.seeds, dists))
+    groups = []
+    for entry in schemes:
+        if isinstance(entry, tuple):
+            name, tuple_pins = entry
+            scheme_obj = get_scheme(name).with_pins(**tuple_pins)
+        else:
+            scheme_obj = get_scheme(entry)
+        scheme, pins = scheme_obj.name, dict(scheme_obj.pins)
+        axes = {
+            "b": spec.b or (spec.base.b,),
+            "tau_max": spec.tau_max or (spec.base.tau_max,),
+            "bandwidth_ratio": spec.bandwidth_ratio or (1.0,),
+        }
+        statics = {}
+        for k, v in pins.items():         # pins win, even over swept axes
+            if k in GROUP_STATICS:
+                statics[k] = v
+            elif k in CFG_AXES:
+                axes[k] = (v,)
+            else:
+                raise ValueError(f"scheme pin {k!r} is neither a traced "
+                                 f"axis {CFG_AXES} nor a group static "
+                                 f"{GROUP_STATICS}")
+        cfgs = tuple({"b": float(b), "tau_max": float(t),
+                      "bandwidth_ratio": float(w)}
+                     for b, t, w in itertools.product(*axes.values()))
+        base = replace(spec.base, scheme=scheme, **statics)
+        b_vals = sorted({c["b"] for c in cfgs})
+        if len(b_vals) == 1:
+            base = replace(base, b=int(max(1, round(b_vals[0]))))
+        else:
+            if spec.base.schedule_override:
+                raise ValueError(
+                    "schedule_override is a static of the compiled round "
+                    "program, but b is swept on the traced config axis "
+                    f"({b_vals}); pin b per scheme or drop the override")
+            base = replace(base, b=B_SWEPT)
+        program = (scheme_obj.lowered_program(tuple(b_vals))
+                   if lower_discard else scheme)
+        groups.append(CompiledGroup(
+            scheme=scheme, base=base, sims=sims, cfgs=cfgs,
+            label=scheme + ("+codec" if base.use_delta_codec else ""),
+            program_scheme=program))
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# engine
+# ---------------------------------------------------------------------------
+
+def _stack_sims(group: CompiledGroup) -> Dict[str, np.ndarray]:
+    """Build + stack per-sim constant arrays, padded to a common length."""
+    per_sim = []
+    for seed, dist in group.sims:
+        cfg = replace(group.base, seed=seed, distribution=dist)
+        per_sim.append(build_sim_arrays(cfg))
+    m = max(a["client_x"].shape[1] for a in per_sim)
+    for a in per_sim:
+        pad = m - a["client_x"].shape[1]
+        if pad:
+            a["client_x"] = np.pad(
+                a["client_x"],
+                ((0, 0), (0, pad)) + ((0, 0),) * (a["client_x"].ndim - 2))
+            a["client_y"] = np.pad(a["client_y"], ((0, 0), (0, pad)))
+    return {k: np.stack([a[k] for a in per_sim]) for k in per_sim[0]}
+
+
+def _sim_tensors(arrays: Dict[str, np.ndarray], device) -> Dict:
+    """The stacked sim arrays on ``device``; labels and lengths int64
+    (they index)."""
+    out = {}
+    for k, v in arrays.items():
+        if k in ("client_y", "test_y", "client_len"):
+            v = v.astype(np.int64)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return out
+
+
+def _group_build_kwargs(group: CompiledGroup) -> Dict[str, Any]:
+    """The static kwargs ``build_device_round`` gets for this group, and
+    the program's identity (``_program_key``): not ``base.scheme`` nor
+    ``base.b`` (the program runs ``program_scheme``, b is a column)."""
+    base = group.base
+    return dict(
+        scheme=group.program_scheme or group.scheme,
+        local_epochs=base.local_epochs,
+        steps_per_epoch=base.steps_per_epoch, batch_size=base.batch_size,
+        lr=base.lr, k_select=base.k_select, channel=base.channel,
+        model_bytes=base.model_bytes,
+        ue_model_fraction=base.ue_model_fraction,
+        compress_ratio=model_compress_ratio(base),
+        use_codec=base.use_delta_codec, codec_block=base.codec_block,
+        codec_bits=base.codec_bits,
+        forward=ForwardPolicy(kernel=base.kernel,
+                              precision=base.precision,
+                              block_k=base.block_k,
+                              batch_users=base.batch_users).validate(),
+        schedule_override=tuple(base.schedule_override),
+        async_alpha=base.async_alpha, async_a=base.async_a)
+
+
+def _program_key(group: CompiledGroup) -> Tuple:
+    """Hashable identity of the round program a group needs."""
+    kw = _group_build_kwargs(group)
+    kw["channel"] = repr(kw["channel"])       # mutable dataclass -> repr
+    return tuple(sorted(kw.items()))
+
+
+def _group_inputs(group: CompiledGroup, data: Dict, device,
+                  stream_factory: Callable = torch_stream):
+    """``(carry0, streams, cfg)`` of a group: each simulation's stream
+    (``stream_factory(cfg_of_the_sim, device)``), its initial params and
+    fleet, every config row's copy of the params, a zero straggler stack,
+    and the config columns as (C,) f32 tensors."""
+    base = group.base
+    streams = GroupStream([
+        stream_factory(replace(base, seed=seed, distribution=dist), device)
+        for seed, dist in group.sims])
+    per_sim = streams.init_params()
+    c, k = len(group.cfgs), base.k_select
+    params0 = tree_map(lambda *ls: _rep(torch.stack(ls), c), *per_sim)
+    fleet0 = fleet_init(streams.fleet_init_draws(base.n_uavs, base.channel),
+                        base.channel)
+    g = len(group.sims) * c
+    carry0 = DeviceSimCarry(
+        params=params0, fleet=fleet0,
+        delayed=tree_map(lambda a: torch.zeros((g, k) + a.shape[1:],
+                                               dtype=a.dtype, device=device),
+                         params0),
+        delayed_mask=torch.zeros((g, k), dtype=torch.bool, device=device))
+    cfg = {key: torch.tensor([cf[key] for cf in group.cfgs],
+                             dtype=torch.float32, device=device)
+           for key in CFG_AXES}
+    return carry0, streams, cfg
+
+
+def _scan_rounds(round_fn: Callable, carry: DeviceSimCarry, streams,
+                 data: Dict, cfg: Dict, rounds: int):
+    """The round loop of a group: ``rounds`` rounds, nothing read back.
+    Returns the final carry and each round's ``DeviceRoundMetrics``."""
+    out = []
+    for t in range(1, rounds + 1):
+        carry, m = round_fn(carry, t, streams, data, cfg)
+        out.append(m)
+    return carry, out
+
+
+def _read_metrics(per_round: List[DeviceRoundMetrics], s: int,
+                  c: int) -> Dict[str, np.ndarray]:
+    """The rounds' metrics in one read: each (S, C, rounds), counts int32,
+    the rest f32."""
+    fields = DeviceRoundMetrics._fields
+    allm = torch.stack([torch.stack([getattr(m, f).to(torch.float32)
+                                     for m in per_round], dim=-1)
+                        for f in fields]).cpu().numpy()
+    out = {}
+    for f, a in zip(fields, allm):
+        a = a.reshape(s, c, len(per_round))
+        out[f] = a.astype(np.float32 if f in ("bytes_sent", "test_loss",
+                                              "test_acc") else np.int32)
+    return out
+
+
+@dataclass
+class GroupResult:
+    scheme: str
+    sims: Tuple[Tuple[int, str], ...]
+    cfgs: Tuple[Dict[str, float], ...]
+    metrics: Dict[str, np.ndarray]        # each (S, C, rounds)
+    compile_s: float = 0.0
+    run_s: float = 0.0
+    label: str = ""                       # scheme (+ "+codec")
+    program_id: int = 0                   # same id: the same round program
+
+    def sim_log(self, sim_i: int, cfg_i: int) -> SimLog:
+        """The loop engine's SimLog for one (sim, config) cell."""
+        log = SimLog()
+        m = self.metrics
+        for t in range(m["test_acc"].shape[-1]):
+            log.add(RoundLog(
+                round=t + 1,
+                selected=int(m["selected"][sim_i, cfg_i, t]),
+                arrived_final=int(m["arrived"][sim_i, cfg_i, t]),
+                used_snapshot=int(m["rescued"][sim_i, cfg_i, t]),
+                dropped=int(m["dropped"][sim_i, cfg_i, t]),
+                delayed=int(m["delayed"][sim_i, cfg_i, t]),
+                bytes_sent=float(m["bytes_sent"][sim_i, cfg_i, t]),
+                test_loss=float(m["test_loss"][sim_i, cfg_i, t]),
+                test_acc=float(m["test_acc"][sim_i, cfg_i, t])))
+        return log
+
+
+@dataclass
+class SweepResult:
+    groups: List[GroupResult]
+    rounds: int
+    wall_s: float = 0.0
+    n_programs: int = 0                   # distinct round programs
+    compile_overlap_s: float = 0.0        # no compile to hide: always 0
+
+    @property
+    def n_simulations(self) -> int:
+        return sum(len(g.sims) * len(g.cfgs) for g in self.groups)
+
+
+def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
+               timeit: bool = False, lower_discard: bool = True, device=None,
+               stream_factory: Callable = torch_stream) -> SweepResult:
+    """Run a SweepSpec: one round function per distinct program key
+    (``_program_key``; a b=1 discard group runs opt's), each group's rounds
+    with its S·C rows folded into the kernels' user axis, the metrics read
+    once per group.
+
+    ``device=None`` is the CUDA card (``repro_torch.device``).  ``mesh``
+    takes ``None`` or ``"auto"`` (one device); the sharded sweep is not
+    ported.  ``timeit`` runs each group a second time from its streams and
+    reports that run's ``run_s``.  There is no compile step, so
+    ``compile_s`` and ``compile_overlap_s`` are 0.0.
+    ``stream_factory(cfg, device)``
+    makes each simulation's stream (``cfg.seed`` is the simulation's)."""
+    if mesh not in (None, "auto"):
+        raise NotImplementedError(
+            "the port's sweep runs on one device: mesh must be None or "
+            "'auto' (the sharded sweep is ROADMAP.md queue 1 item 5, "
+            "multi-device)")
+    device = resolve_device(device)
+    rounds = spec.base.rounds
+    t_all = time.time()
+    programs: Dict[Tuple, Tuple[Callable, int]] = {}
+    sims_data: Dict[Tuple, Dict] = {}
+    out = []
+    for group in compile_spec(spec, lower_discard=lower_discard):
+        key = _program_key(group)
+        if key not in programs:
+            programs[key] = (build_device_round(**_group_build_kwargs(group)),
+                             len(programs))
+        fn, pid = programs[key]
+        if group.sims not in sims_data:
+            sims_data[group.sims] = _sim_tensors(_stack_sims(group), device)
+        data = sims_data[group.sims]
+        for _ in range(2 if timeit else 1):
+            carry, streams, cfg = _group_inputs(group, data, device,
+                                                stream_factory)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            _, per_round = _scan_rounds(fn, carry, streams, data, cfg,
+                                        rounds)
+            metrics = _read_metrics(per_round, len(group.sims),
+                                    len(group.cfgs))
+            run_s = time.perf_counter() - t0
+        out.append(GroupResult(
+            scheme=group.scheme, sims=group.sims, cfgs=group.cfgs,
+            metrics=metrics, compile_s=0.0, run_s=round(run_s, 3),
+            label=group.label or group.scheme, program_id=pid))
+        if verbose:
+            accs = metrics["test_acc"][..., -1]
+            print(f"[sweep/{out[-1].label}] sims={len(group.sims)} "
+                  f"cfgs={len(group.cfgs)} rounds={rounds} "
+                  f"run={out[-1].run_s:.2f}s final_acc={accs.mean():.4f}")
+    return SweepResult(groups=out, rounds=rounds,
+                       wall_s=round(time.time() - t_all, 3),
+                       n_programs=len(programs), compile_overlap_s=0.0)
+
+
+def run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
+              timeit: bool = False, lower_discard: bool = True, device=None,
+              stream_factory: Callable = torch_stream) -> SweepResult:
+    """Deprecated entry point; use ``repro_torch.api.Experiment``::
+
+        Experiment.from_spec(spec).run(engine="sweep")"""
+    import warnings
+    warnings.warn("run_sweep is deprecated; use repro_torch.api.Experiment"
+                  ".from_spec(spec).run(engine='sweep')",
+                  DeprecationWarning, stacklevel=2)
+    return _run_sweep(spec, mesh=mesh, verbose=verbose, timeit=timeit,
+                      lower_discard=lower_discard, device=device,
+                      stream_factory=stream_factory)
+
+
+def run_hsfl_on_device(cfg: HSFLConfig, mesh: Any = None,
+                       device=None) -> SimLog:
+    """Deprecated entry point; use ``repro_torch.api.Experiment``::
+
+        Experiment(cfg).run(engine="sweep").groups[0].sim_log(0, 0)"""
+    import warnings
+    warnings.warn("run_hsfl_on_device is deprecated; use repro_torch.api."
+                  "Experiment(cfg).run(engine='sweep')",
+                  DeprecationWarning, stacklevel=2)
+    spec = SweepSpec(base=cfg, seeds=(cfg.seed,))
+    res = _run_sweep(spec, mesh=mesh, device=device)
+    return res.groups[0].sim_log(0, 0)
+
+
+# ---------------------------------------------------------------------------
+# Fig. 3 panels as SweepSpecs
+# ---------------------------------------------------------------------------
+
+def fig3a_spec(rounds: int = 60, seeds=(0, 1), **base_kw) -> List[SweepSpec]:
+    """Fig. 3(a): OPT (b=2) vs discard across iid/non-iid/imbalanced
+    (distributions stack on the simulation axis)."""
+    base = HSFLConfig(rounds=rounds, **base_kw)
+    dists = ("iid", "noniid", "imbalanced")
+    return [SweepSpec(base=base, seeds=tuple(seeds), distributions=dists,
+                      schemes=(("opt", {"b": 2.0}),
+                               ("discard", {"b": 1.0})))]
+
+
+def fig3b_spec(rounds: int = 60, seeds=(0, 1), **base_kw) -> List[SweepSpec]:
+    """Fig. 3(b): OPT-HSFL vs Async-HSFL vs discard on non-iid."""
+    base = HSFLConfig(rounds=rounds, **base_kw)
+    return [SweepSpec(base=base, seeds=tuple(seeds),
+                      schemes=(("opt", {"b": 2.0}),
+                               ("async", {"b": 1.0}),
+                               ("discard", {"b": 1.0})))]
+
+
+def fig3c_spec(rounds: int = 60, seeds=(0,), **base_kw) -> List[SweepSpec]:
+    """Fig. 3(c): the budget sweep, b on the config axis."""
+    base = HSFLConfig(rounds=rounds, scheme="opt", **base_kw)
+    return [SweepSpec(base=base, seeds=tuple(seeds),
+                      b=(1.0, 2.0, 3.0, 4.0, 5.0, 6.0))]
+
+
+def fig3d_spec(rounds: int = 60, seeds=(0,), **base_kw) -> List[SweepSpec]:
+    """Fig. 3(d): the τ_max sweep, the latency cliff on the config axis."""
+    base = HSFLConfig(rounds=rounds, scheme="opt", b=2, **base_kw)
+    return [SweepSpec(base=base, seeds=tuple(seeds),
+                      tau_max=(7.0, 8.0, 9.0, 10.0, 11.0))]

@@ -232,6 +232,39 @@ def make_eval_forward(policy: ForwardPolicy) -> Callable:
     return eval_fwd
 
 
+def make_stacked_eval_forward(policy: ForwardPolicy) -> Callable:
+    """``eval_fwd_k(params, images) -> logits`` (G, B, classes) f32 for G
+    models (params leaves (G, ...)) on their own test sets, images
+    (G, B, H, W, C): the blocked forward kernels at K = G without the
+    training residuals, one launch per layer, in the policy's compute
+    dtype.  "im2col" and ``batch_users=False`` evaluate the G models one
+    by one through ``make_eval_forward``."""
+    policy.validate()
+    if policy.kernel == "im2col" or not policy.batch_users:
+        one = make_eval_forward(policy)
+
+        def eval_each(params, images):
+            return torch.stack([one(tree_map(lambda t: t[g], params),
+                                    images[g])
+                                for g in range(images.shape[0])])
+
+        return eval_each
+    cd = policy.compute_dtype
+
+    @torch.no_grad()
+    def eval_fwd_k(params, images):
+        p, x = _cast_in(params, images, cd)
+        a1, _ = knl.conv_pool_fwd_k(x, p["conv1"]["w"], p["conv1"]["b"],
+                                    residuals=False)
+        a2, _ = knl.conv_pool_fwd_k(a1, p["conv2"]["w"], p["conv2"]["b"],
+                                    residuals=False)
+        logits, _ = knl.fc_chain_fwd_k(
+            a2.reshape(a2.shape[0], a2.shape[1], -1), p)
+        return logits.float()
+
+    return eval_fwd_k
+
+
 # ---------------------------------------------------------------------------
 # stacked-cohort step: the K-user axis handled by the kernels
 # ---------------------------------------------------------------------------

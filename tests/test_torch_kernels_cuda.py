@@ -76,8 +76,10 @@ def _close(got, want):
     assert err <= RTOL * scale, (err, scale)
 
 
-COHORTS = [(10, 10, False), (3, 7, False), (3, 2, True)]
-IDS = ["main-K10-B10", "odd-K3-B7", "ones-tie-K3-B2"]
+# the main path's cohort, an odd one, an all-ones tie cohort, and a sweep
+# group's folded cohort (Fig. 3(c): 6 configs x 10 users)
+COHORTS = [(10, 10, False), (3, 7, False), (3, 2, True), (60, 10, False)]
+IDS = ["main-K10-B10", "odd-K3-B7", "ones-tie-K3-B2", "sweep-K60-B10"]
 
 
 @pytest.mark.cuda
@@ -319,7 +321,9 @@ CONV_SHAPES = [
     # runtime-shape instantiation
     (10, 10, 28, 1, 8, True), (10, 10, 14, 8, 16, True),
     (1, 1000, 28, 1, 8, False), (1, 1000, 14, 8, 16, False),
-    (2, 3, 6, 1, 8, True), (2, 3, 6, 3, 5, True)]
+    (2, 3, 6, 1, 8, True), (2, 3, 6, 3, 5, True),
+    # a sweep group's eval: G = 6 models, each on the 1000 test images
+    (6, 1000, 28, 1, 8, False), (6, 1000, 14, 8, 16, False)]
 
 
 @pytest.mark.cuda
@@ -493,6 +497,58 @@ def test_policy_round_on_card_matches_cpu(cuda, kw):
             assert float((a - b).norm() / b.norm()) < 0.02
         else:
             assert float((a - b).abs().max()) < 1e-4
+
+
+def _sweep_group(dev, **kw):
+    """A tiny sweep group (2 seeds x 2 budgets, G = 4) on ``dev``, every
+    draw made on the CPU; returns (metrics, final params, launches)."""
+    from repro_torch.core import sweep
+    from repro_torch.core.hsfl import HSFLConfig
+    from repro_torch.core.streams import TorchStream
+    from repro_torch.kernels.delta_codec import kernel as dk
+    from repro_torch.kernels.fused_cnn import kernel as knl
+    base = HSFLConfig(rounds=2, n_uavs=8, k_select=4, n_train=400,
+                      n_test=100, steps_per_epoch=2, local_epochs=3, **kw)
+    spec = sweep.SweepSpec(base=base, seeds=(0, 1), b=(1.0, 3.0))
+    group = sweep.compile_spec(spec)[0]
+    data = sweep._sim_tensors(sweep._stack_sims(group), dev)
+    carry, streams, cfg = sweep._group_inputs(
+        group, data, dev,
+        lambda c, d: TorchStream(c.seed, d, draw_on="cpu"))
+    fn = sweep.build_device_round(**sweep._group_build_kwargs(group))
+    knl.reset_launches()
+    dk.reset_launches()
+    carry, per_round = sweep._scan_rounds(fn, carry, streams, data, cfg,
+                                          base.rounds)
+    return (sweep._read_metrics(per_round, 2, 2), carry.params,
+            {**knl.LAUNCHES, **dk.LAUNCHES})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [False, True], ids=["f32", "codec"])
+def test_device_round_on_card_matches_cpu(cuda, codec):
+    """A sweep group (opt, G = 2 seeds x 2 budgets) on the card and on the
+    CPU from one CPU-drawn stream: equal counts; params within 1e-4 (plus
+    one quantization step of 2**-7 of the largest delta with the codec,
+    which may move one lane across a .5 boundary); accuracy within one test
+    image.  On the card the training kernels launch once per layer per
+    step, whatever G is; the eval once per layer per round."""
+    from repro_torch.utils.tree import tree_leaves
+    m_g, p_g, n_g = _sweep_group(cuda, use_delta_codec=codec)
+    m_c, p_c, _ = _sweep_group("cpu", use_delta_codec=codec)
+    for key in ("selected", "arrived", "rescued", "delayed", "dropped"):
+        assert (m_g[key] == m_c[key]).all(), key
+    assert abs(m_g["test_acc"] - m_c["test_acc"]).max() <= 0.01 + 1e-9
+    tol = 1e-4 + (2 ** -7 if codec else 0.0)
+    for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)):
+        assert float((a.cpu() - b).abs().max()) < tol
+    steps = 2 * 3 * 2
+    assert n_g["conv_pool_fwd_k"] == 2 * steps + 2 * 2
+    assert n_g["conv_pool_bwd_k"] == 2 * steps
+    assert n_g["fc_chain_fwd_k"] == steps + 2
+    assert n_g["fc_chain_bwd_k"] == steps
+    assert n_g["quantize_blocks"] == (2 * 3 if codec else 0)
+    assert n_g["dequantize_blocks"] == (2 if codec else 0)
 
 
 def codec_input(m, block, bits, seed, device):
@@ -997,6 +1053,32 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_device_engine_modules_load_no_jax():
+    code = ("import sys, repro_torch.api, repro_torch.core.sweep, "
+            "repro_torch.core.streams, repro_torch.core.channel_lib, "
+            "repro_torch.core.selection\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_experiment_refuses_to_run_without_a_card(monkeypatch):
+    from repro_torch.api import Experiment
+    from repro_torch.core.hsfl import HSFLConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ex = Experiment(HSFLConfig(rounds=1, n_uavs=4, k_select=2, n_train=100,
+                               n_test=20))
+    for engine in ("auto", "sweep", "fused", "loop"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ex.run(engine=engine)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ex.serve()
 
 
 def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
