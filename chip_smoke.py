@@ -59,8 +59,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``serving.decode.prefill``) over a 256-token prompt at bf16 and f32;
    (d) ``launch/serve.py`` on Llama-3.2-1B and ``generate`` on the 4-layer
    RWKV6-7B, tokens per second; (e) card vs CPU at the reduced size:
-   logits, and greedy tokens equal at f32.  The phase prints its wall
-   time;
+   logits, and greedy tokens equal at f32.  Then the moe, hybrid, vlm and
+   audio families, each at full width and depth (granite-moe-3b-a800m,
+   hymba-1.5b, qwen2-vl-2b, hubert-xlarge), one loaded at a time: (a)
+   flash attention against its twin at their shapes (groups of 3, 5 and 6;
+   hymba's odd B·H) with the other 8a cases; (b) the prefill at B=2 x
+   2048 (hubert: 1500 frames) from ``models.inputs.materialize``, counts
+   set to 0 just before: one flash launch per layer; ms, prompt tokens/s,
+   busy share and top device ops, granite's scatter-dropped share and
+   dense-dispatch ms, hymba's mamba-loop share; (c) the kernel path
+   against the cache path at 256 text tokens (granite under the dense
+   dispatch); (d) ``generate`` (B=4, prompt 64, 32 new, greedy) for the
+   decoders, and ``launch/serve.py`` on hymba-1.5b; (e) card vs CPU at the
+   reduced sizes: f32 1e-4, bf16 3% Frobenius, greedy tokens equal at
+   f32.  The phase prints its wall time;
 9. the sweep path (``Experiment(...).run(engine="sweep")``) at the paper's
    configuration with the rounds cut to 5: (a) a Fig. 3(b) panel (opt
    b=2, async b=1, discard b=1, seeds 0 and 1: 2 programs), (b) the Fig.
@@ -127,6 +139,9 @@ BF16_FROB = 0.05
 # boundary, so codec runs add one quantization step: the largest scale
 # either side's codec produced
 PARAM_ATOL = 1e-4
+
+# profiler sessions tried before a timing falls back to CUDA events
+PROFILE_TRIES = 3
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
@@ -287,27 +302,41 @@ def device_split(fn, iters: int) -> dict:
     on the H100), so the summed time over ``iters`` reads low.  Each kernel is therefore timed
     as its mean over the records there are, times its launches per call:
     the record count over ``iters``, rounded (exact while fewer than
-    ``iters / 2`` records of it are lost)."""
+    ``iters / 2`` records of it are lost).
+
+    Now and then a whole session records no device event (once in phase
+    3, on the H100).  The session is then run again, up to PROFILE_TRIES
+    times in all; after that the calls are timed back to back with CUDA
+    events (launch gaps included), and the line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    split, lost = {}, 0
-    for ev in _device_events(prof):
-        if ev.count:
-            per_call = max(1, round(ev.count / iters))
-            lost += per_call * iters - ev.count
-            split[ev.key] = _self_device_us(ev) / ev.count * per_call / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        split, lost = {}, 0
+        for ev in _device_events(prof):
+            if ev.count:
+                per_call = max(1, round(ev.count / iters))
+                lost += per_call * iters - ev.count
+                split[ev.key] = (_self_device_us(ev) / ev.count * per_call
+                                 / 1e3)
+        if sum(split.values()) > 0:
+            break
+        print("    (the profiler recorded no device time in this session)")
+    else:
+        ms = cuda_ms(fn, iters)
+        print(f"    (no device time in {PROFILE_TRIES} profiler sessions: "
+              f"timed with CUDA events over back-to-back calls, {ms:.4f} "
+              f"ms a call)")
+        return {"CUDA events, back to back": ms}
     if lost > 0:
         print(f"    (the profiler lost {lost} kernel records of {iters} "
               f"calls; timed from the records it kept)")
-    if not sum(split.values()) > 0:
-        raise AssertionError("the profiler recorded no device time")
     return split
 
 
@@ -1534,16 +1563,26 @@ ZOO_B, ZOO_S = 2, 2048
 HUBERT_S = 1500
 RWKV_LAYERS = 4
 CACHE_PROMPT = 256
+# the moe, hybrid and vlm families' attention (q heads, kv heads, D)
+FAMILY_HEADS = {"granite-moe-3b-a800m": (24, 8, 64),
+                "hymba-1.5b": (25, 5, 64),
+                "qwen2-vl-2b": (12, 2, 128)}
+# the four families of phase 8's second part, each at full width and depth
+FAMILIES = ("granite-moe-3b-a800m", "hymba-1.5b", "qwen2-vl-2b",
+            "hubert-xlarge")
+# reduced variants for card vs CPU that keep GQA with 2 kv heads
+REDUCED_KV = {"llama3.2-1b": 2, "granite-moe-3b-a800m": 2, "hymba-1.5b": 2}
+# moe card vs CPU at bf16: the share of tokens whose route may move (a
+# router probability within bf16 roundings of the k-th one; 10% leaves
+# room over the share measured, see PERF.md)
+MOE_MOVED_MAX = 0.10
 
 
-def zoo_configs(reduced: bool = False):
-    """(Llama-3.2-1B, RWKV6-7B cut to RWKV_LAYERS layers), or their
-    reduced variants, llama with 2 kv heads (phase 8e)."""
+def zoo_configs():
+    """Llama-3.2-1B, and RWKV6-7B cut to RWKV_LAYERS layers."""
     from repro_torch.configs import get_config
-    llama, rwkv = get_config("llama3.2-1b"), get_config("rwkv6-7b")
-    if reduced:
-        return llama.reduced().replace(num_kv_heads=2), rwkv.reduced()
-    return llama, rwkv.replace(num_layers=RWKV_LAYERS)
+    return (get_config("llama3.2-1b"),
+            get_config("rwkv6-7b").replace(num_layers=RWKV_LAYERS))
 
 
 def flash_inputs(b, h, kv, sq, sk, d, dtype, seed):
@@ -1606,6 +1645,17 @@ def check_zoo_kernels(chk: Check, s: int = ZOO_S):
              # the f32 kernel's widest instantiation (acc 4 x 16 a lane)
              ("D=128 causal f32", (ZOO_B, 8, 2, 1024, 1024, 128, True, 0,
                                    f32))]
+    # the other families' attention at their prefill shapes: the groups
+    # of 3 (granite), 5 (hymba: 25 q heads, so B·H is odd at B = 1 and 3)
+    # and 6 (qwen2-vl, D=128)
+    for fam, (h, kv, d) in FAMILY_HEADS.items():
+        for dt, tag in ((bf, "bf16"), (f32, "f32")):
+            cases.append((f"{fam} G={h // kv} D={d} {tag}",
+                          (ZOO_B, h, kv, s, s, d, True, 0, dt)))
+    for b, sl in ((1, s), (3, 300)):
+        for dt, tag in ((bf, "bf16"), (f32, "f32")):
+            cases.append((f"hymba-1.5b B·H={b * 25} S={sl} {tag}",
+                          (b, 25, 5, sl, sl, 64, True, 0, dt)))
     for i, (label, (b, h, kv, sq, sk, d, causal, window, dt)) in \
             enumerate(cases):
         q, k, v = flash_inputs(b, h, kv, sq, sk, d, dt, seed=100 + i)
@@ -1722,26 +1772,27 @@ def time_zoo_kernels() -> dict:
     return out
 
 
-def zoo_prefill(cfg, label: str, iters: int = 3):
+def zoo_prefill(cfg, label: str, iters: int = 3, seq: int = ZOO_S):
     """The main path of the zoo: ``make_prefill_step`` on B x S prompts at
-    full width, weights from the port's init (one generator seed).  Counts
-    are set to 0 just before the first prefill and read just after it;
-    returns (model, params, launches, ms per prefill)."""
+    full width, weights from the port's init (one generator seed), inputs
+    from ``models.inputs.materialize`` (tokens; frame embeddings for audio;
+    patch embeddings and M-RoPE positions for vlm).  Counts are set to 0
+    just before the first prefill and read just after it; returns (model,
+    params, inputs, launches, ms per prefill, busy share)."""
     import torch
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, inputs as zin
     from repro_torch.training.step import make_prefill_step
     model = build_model(cfg, DEVICE)
     params = model.init(torch.Generator(DEVICE).manual_seed(0))
     n_params = model.param_count(params)
-    tokens = torch.randint(0, cfg.vocab_size, (ZOO_B, ZOO_S),
-                           generator=torch.Generator().manual_seed(1)
-                           ).to(DEVICE)
+    batch = zin.materialize(zin.prefill_specs(cfg, ZOO_B, seq), cfg, seed=1,
+                            device=DEVICE)
     step = make_prefill_step(model)
     reset_all_launches()
-    logits = step(params, {"tokens": tokens})
+    logits = step(params, batch)
     sync()
     launches = all_launches()
-    if tuple(logits.shape) != (ZOO_B, ZOO_S, cfg.vocab_padded) or not bool(
+    if tuple(logits.shape) != (ZOO_B, seq, cfg.vocab_padded) or not bool(
             torch.isfinite(logits.float()).all()):
         raise AssertionError(f"{label}: prefill logits of shape "
                              f"{tuple(logits.shape)} are not all finite")
@@ -1750,24 +1801,24 @@ def zoo_prefill(cfg, label: str, iters: int = 3):
     for _ in range(iters):
         sync()
         t0 = time.perf_counter()
-        step(params, {"tokens": tokens})
+        step(params, batch)
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     ms = float(np.median(times))
-    profile_step(lambda: step(params, {"tokens": tokens}),
-                 f"{label} prefill")
+    busy = profile_step(lambda: step(params, batch), f"{label} prefill")
     print(f"  {label} prefill: {cfg.num_layers} layers, d={cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params ({cfg.param_dtype}, compute "
-          f"{cfg.dtype}), B={ZOO_B} x S={ZOO_S}: {ms:.1f} ms per prefill "
-          f"(median of {iters}, first {times[0]:.1f}), "
-          f"{ZOO_B * ZOO_S / ms * 1e3:.0f} prompt tokens/s; launches "
-          f"{ {n: launches[n] for n in ZOO} }")
-    return model, params, {n: launches[n] for n in ZOO}, ms
+          f"{cfg.dtype}), B={ZOO_B} x S={seq} ({', '.join(batch)}): "
+          f"{ms:.1f} ms per prefill (median of {iters}, first "
+          f"{times[0]:.1f}), {ZOO_B * seq / ms * 1e3:.0f} prompt tokens/s; "
+          f"launches { {n: launches[n] for n in ZOO} }")
+    return (model, params, batch, {n: launches[n] for n in ZOO}, ms, busy)
 
 
 def profile_step(fn, label: str, top: int = 10):
     """One call of ``fn`` under torch.profiler: wall, device busy share,
-    and the kernels that take the most device time."""
+    and the kernels that take the most device time; returns the busy share
+    (None if the profiler recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1780,19 +1831,22 @@ def profile_step(fn, label: str, top: int = 10):
     dev_us = _device_us(prof)
     if dev_us <= 0:
         print(f"  {label}: the profiler recorded no device time")
-        return
+        return None
     print(f"  {label} under the profiler: wall {wall * 1e3:.1f} ms, device "
           f"busy {dev_us / 1e3:.2f} ms -> busy share "
           f"{dev_us / 1e6 / wall:.3f}")
     print_top_kernels(prof, top)
+    return dev_us / 1e6 / wall
 
 
-def zoo_kernel_vs_cache(model, params, label: str, prompt: int = CACHE_PROMPT):
+def zoo_kernel_vs_cache(model, params, label: str, prompt: int = CACHE_PROMPT,
+                        opts=None):
     """The reference's decode-matches-forward test at full width: the
     full-sequence forward through the kernel, its logits at the last
     position, against ``serving.decode.prefill`` walking the cache (or the
-    RWKV state) token by token with no kernel; at the config's bf16 and
-    at f32, from the same params."""
+    RWKV or mamba state) token by token with no kernel; at the config's
+    bf16 and at f32, from the same params, text tokens only, both paths
+    under ``opts``."""
     import torch
     from repro_torch.models import build_model
     from repro_torch.serving.decode import prefill
@@ -1801,13 +1855,26 @@ def zoo_kernel_vs_cache(model, params, label: str, prompt: int = CACHE_PROMPT):
                            ).to(DEVICE)
     for dtype in ("bfloat16", "float32"):
         m = build_model(model.cfg.replace(dtype=dtype), DEVICE)
-        full, _ = m.forward(params, {"tokens": tokens})
+        (full, _), r_full = moe_routes(
+            lambda: m.forward(params, {"tokens": tokens}, opts))
         sync()
         t0 = time.perf_counter()
-        last, _, _ = prefill(m, params, tokens, context_len=prompt)
+        (last, _, _), r_loop = moe_routes(
+            lambda: prefill(m, params, tokens, context_len=prompt,
+                            opts=opts))
         sync()
         loop_ms = (time.perf_counter() - t0) * 1e3
-        a, b = full[:, -1].float(), last[:, 0].float()
+        moved = ""
+        if model.cfg.num_experts:
+            # (layers, tokens, k) from both paths: the loop routes token by
+            # token, every layer at each step
+            kf = torch.stack(r_full)
+            kl = torch.stack(r_loop).reshape(prompt, len(r_full), -1)
+            diff = (kf != kl.transpose(0, 1)).any(-1).any(0)
+            moved = (f"; routes moved for {float(diff.float().mean()):.4f} "
+                     f"of the tokens (the last: {bool(diff[-1])})")
+        V = model.cfg.vocab_size          # the padded slots hold -1e9
+        a, b = full[:, -1, :V].float(), last[:, 0, :V].float()
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
         if dtype == "float32":
             err, rel = rel_err(a, b)
@@ -1819,8 +1886,9 @@ def zoo_kernel_vs_cache(model, params, label: str, prompt: int = CACHE_PROMPT):
             ok, what = frob <= ZOO_CACHE_BF16_FROB, (
                 f"relative Frobenius {frob:.3e} (tol {ZOO_CACHE_BF16_FROB})")
         print(f"  {label} {dtype}: kernel path vs cache path over a "
-              f"{prompt}-token prompt: {what}, argmax agrees {agree:.2f}; "
-              f"token loop {loop_ms:.0f} ms {'ok' if ok else 'FAIL'}")
+              f"{prompt}-token prompt: {what}, argmax agrees {agree:.2f}"
+              f"{moved}; token loop {loop_ms:.0f} ms "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{label} {dtype}: the kernel path and the "
                                  "cache path disagree")
@@ -1829,78 +1897,274 @@ def zoo_kernel_vs_cache(model, params, label: str, prompt: int = CACHE_PROMPT):
 def zoo_serving(rwkv_model, rwkv_params) -> dict:
     """``launch/serve.py`` on Llama-3.2-1B as a user runs it (greedy), and
     the same ``generate`` on the 4-layer RWKV6-7B; tokens per second."""
-    import torch
     from repro_torch.launch import serve
-    from repro_torch.serving import generate
-    batch, plen, new = 4, 64, 32
-    argv = ["--device", DEVICE, "--arch", "llama3.2-1b", "--batch",
-            str(batch), "--prompt-len", str(plen), "--max-new", str(new)]
+    argv = ["--device", DEVICE, "--arch", "llama3.2-1b", "--batch", "4",
+            "--prompt-len", "64", "--max-new", "32"]
     sync()
     t0 = time.perf_counter()
     if serve.main(argv) != 0:
         raise AssertionError("launch/serve.py failed")
     sync()
     llama_s = time.perf_counter() - t0
-    prompt = torch.randint(0, rwkv_model.cfg.vocab_size, (batch, plen),
+    print(f"  serve.main {' '.join(argv)}: {llama_s:.2f} s with init (its "
+          f"own tok/s line above)")
+    reset_all_launches()
+    rate = zoo_generate(rwkv_model, rwkv_params,
+                        f"rwkv6-7b ({RWKV_LAYERS} layers)")
+    print(f"  launches in generate { {n: all_launches()[n] for n in ZOO} } "
+          f"(decode runs no kernel)")
+    return {"llama_serve_s": llama_s, "rwkv_tok_s": rate}
+
+
+def moe_dropped_shares(fn) -> list:
+    """The share of routed tokens that the scatter path drops for
+    capacity, per moe layer, over one call of ``fn``: each call of
+    ``moe.dispatch_slots`` is recorded (a read back per layer, so never
+    inside a timed run)."""
+    from repro_torch.models import moe
+    plain, shares = moe.dispatch_slots, []
+
+    def recorded(flat_e, E, C):
+        slot, keep = plain(flat_e, E, C)
+        shares.append(1.0 - float(keep.float().mean()))
+        return slot, keep
+
+    moe.dispatch_slots = recorded
+    try:
+        fn()
+    finally:
+        moe.dispatch_slots = plain
+    return shares
+
+
+def moe_routes(fn):
+    """``fn()``'s result and the set of experts each moe layer picked for
+    each token (``moe.top_k``'s indices in ascending order, one (T, k)
+    tensor a layer: an order that differs within the set moves no
+    output)."""
+    import torch
+    from repro_torch.models import moe
+    plain, routes = moe.top_k, []
+
+    def recorded(probs, k):
+        w, e = plain(probs, k)
+        routes.append(torch.sort(e, dim=-1).values)
+        return w, e
+
+    moe.top_k = recorded
+    try:
+        out = fn()
+    finally:
+        moe.top_k = plain
+    return out, routes
+
+
+def mamba_loop_share(model, params, batch) -> dict:
+    """The mamba branch's and its time loop's (``selective_scan``) share
+    of one hybrid prefill, read inside that prefill: CUDA events recorded
+    around every call of ``mamba.mamba_full`` and ``mamba.selective_scan``
+    (the loop issues from the host, so the events span its issue), summed
+    over the layers, over the prefill's own wall."""
+    import torch
+    from repro_torch.models import mamba as mb
+    plain = {"mamba_full": mb.mamba_full, "selective_scan": mb.selective_scan}
+    spans = {name: [] for name in plain}
+
+    def timed(name):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = plain[name](*args)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    for name in plain:
+        setattr(mb, name, timed(name))
+    try:
+        sync()
+        t0 = time.perf_counter()
+        model.forward(params, batch)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in plain.items():
+            setattr(mb, name, fn)
+    ms = {name: sum(s.elapsed_time(e) for s, e in ev)
+          for name, ev in spans.items()}
+    out = {"mamba_branch_ms": ms["mamba_full"],
+           "scan_ms": ms["selective_scan"], "timed_prefill_ms": wall,
+           "mamba_share": ms["mamba_full"] / wall,
+           "scan_share": ms["selective_scan"] / wall}
+    print(f"  {model.cfg.name} mamba, inside one prefill of {wall:.1f} ms: "
+          f"the branch {ms['mamba_full']:.1f} ms ({out['mamba_share']:.1%}), "
+          f"its time loop over S={ZOO_S} steps (selective_scan) "
+          f"{ms['selective_scan']:.1f} ms ({out['scan_share']:.1%}), over "
+          f"{len(spans['selective_scan'])} layers (CUDA events)")
+    return out
+
+
+def zoo_generate(model, params, label: str, batch: int = 4, plen: int = 64,
+                 new: int = 32) -> float:
+    """Greedy ``generate`` on the loaded params, B x prompt tokens, new
+    tokens per second (the prompt fed token by token, as the launcher
+    does)."""
+    import torch
+    from repro_torch.serving import generate
+    prompt = torch.randint(0, model.cfg.vocab_size, (batch, plen),
                            generator=torch.Generator().manual_seed(3)
                            ).to(DEVICE)
-    reset_all_launches()
     sync()
     t0 = time.perf_counter()
-    out = generate(rwkv_model, rwkv_params, prompt, max_new=new,
+    out = generate(model, params, prompt, max_new=new,
                    context_len=plen + new)
     sync()
-    rwkv_s = time.perf_counter() - t0
+    sec = time.perf_counter() - t0
     if tuple(out.shape) != (batch, new) or int(out.max()) >= \
-            rwkv_model.cfg.vocab_padded or int(out.min()) < 0:
-        raise AssertionError(f"rwkv6 generate gave {tuple(out.shape)} "
+            model.cfg.vocab_padded or int(out.min()) < 0:
+        raise AssertionError(f"{label} generate gave {tuple(out.shape)} "
                              "tokens out of the vocab")
-    rate = batch * new / rwkv_s
-    print(f"  serve.main {' '.join(argv)}: {llama_s:.2f} s with init "
-          f"(its own tok/s line above); rwkv6-7b ({RWKV_LAYERS} layers) "
-          f"generate B={batch} prompt={plen} new={new}: {rwkv_s:.2f} s, "
-          f"{rate:.1f} new tok/s (prompt fed token by token); launches "
-          f"{ {n: all_launches()[n] for n in ZOO} } (decode runs no kernel)")
-    return {"llama_serve_s": llama_s, "rwkv_generate_s": rwkv_s,
-            "rwkv_tok_s": rate}
+    print(f"  {label} generate B={batch} prompt={plen} new={new}: "
+          f"{sec:.2f} s, {batch * new / sec:.1f} new tok/s (prompt fed "
+          f"token by token)")
+    return batch * new / sec
 
 
-def zoo_card_vs_cpu():
-    """The reduced configs (llama with 2 kv heads, rwkv6) at bf16 and f32:
-    the card's kernel path against the CPU twins from one set of params,
-    logits and greedy tokens (equal at f32)."""
+def family_path(arch: str) -> dict:
+    """One family at full width and depth: (8b) the prefill, with the flash
+    kernel launched once a layer, the moe scatter's dropped share and the
+    dense dispatch's time, the mamba loop's share; (8c) the kernel path
+    against the cache path (moe under ``dense``: the scatter path's
+    capacity depends on the tokens routed at once, so it drops tokens in
+    the forward and none a step); (8d) ``generate`` for the decoders and
+    ``launch/serve.py`` on hymba-1.5b; then the weights are freed."""
     import torch
-    from repro_torch.models import build_model
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    seq = HUBERT_S if cfg.family == "audio" else ZOO_S
+    model, params, batch, launch, ms, busy = zoo_prefill(cfg, arch, seq=seq)
+    if launch != {"flash_attention_bh": cfg.num_layers, "wkv6_bh": 0}:
+        raise AssertionError(f"{arch} prefill launches {launch}: expected "
+                             f"one flash attention per layer")
+    out = {"layers": cfg.num_layers, "launches": launch["flash_attention_bh"],
+           "prefill_ms": ms, "prompt_tok_s": ZOO_B * seq / ms * 1e3,
+           "busy": busy}
+    if cfg.num_experts:
+        shares = moe_dropped_shares(lambda: model.forward(params, batch))
+        out["dropped_share"] = float(np.mean(shares))
+        dense = {"moe_dispatch": "dense"}
+        model.forward(params, batch, dense)
+        sync()
+        t0 = time.perf_counter()
+        model.forward(params, batch, dense)
+        sync()
+        out["dense_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        print(f"  {arch} scatter dispatch at T = {ZOO_B * seq} tokens: "
+              f"capacity {moe.capacity(ZOO_B * seq, cfg)} slots an expert, "
+              f"dropped share {out['dropped_share']:.4f} (per layer {min(shares):.4f}-{max(shares):.4f}); the dense "
+              f"dispatch's prefill {out['dense_prefill_ms']:.1f} ms")
+    if cfg.family == "hybrid":
+        out.update(mamba_loop_share(model, params, batch))
+    if not cfg.is_encoder_only:
+        opts = {"moe_dispatch": "dense"} if cfg.num_experts else None
+        zoo_kernel_vs_cache(model, params, arch, opts=opts)
+        if cfg.num_experts:
+            toks = torch.randint(0, cfg.vocab_size, (1, CACHE_PROMPT),
+                                 generator=torch.Generator().manual_seed(2)
+                                 ).to(DEVICE)
+            shares = moe_dropped_shares(
+                lambda: model.forward(params, {"tokens": toks}))
+            print(f"  {arch}: the scatter path over the same "
+                  f"{CACHE_PROMPT}-token prompt drops {np.mean(shares):.4f} "
+                  f"of its routes (the cache path: none, B tokens a step)")
+        out["new_tok_s"] = zoo_generate(model, params, arch)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    if cfg.family == "hybrid":
+        argv = ["--device", DEVICE, "--arch", arch, "--batch", "4",
+                "--prompt-len", "64", "--max-new", "32"]
+        if serve.main(argv) != 0:
+            raise AssertionError("launch/serve.py failed")
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_card_vs_cpu(archs):
+    """(8e) The reduced ``archs`` (llama, granite and hymba with 2 kv
+    heads) at f32 and bf16: the card's path against the CPU twins from one
+    set of params and one ``materialize`` seed, logits over the real
+    vocabulary and, for the decoders, greedy tokens (equal at f32).
+
+    moe at bf16: a router probability that rounds the other way on one
+    side moves a token's k-th expert, and the token's output with it (one
+    moved token of 256 is ~2.6% of the logits' norm).  So granite runs
+    the dense dispatch there (no capacity: a moved route changes no other
+    token's drop), its routes are recorded on both sides, the tokens whose
+    routes moved in any layer are counted (at most MOE_MOVED_MAX of them)
+    and the 3% bound holds over the others."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, inputs as zin
     from repro_torch.serving import generate
     from repro_torch.utils.tree import tree_map
-    for cfg in zoo_configs(reduced=True):
+    for arch in archs:
+        cfg = get_config(arch).reduced()
+        if arch in REDUCED_KV:
+            cfg = cfg.replace(num_kv_heads=REDUCED_KV[arch])
         for dtype in ("float32", "bfloat16"):
             c = cfg.replace(dtype=dtype)
             m_gpu, m_cpu = build_model(c, DEVICE), build_model(c, "cpu")
             p_cpu = m_cpu.init(torch.Generator().manual_seed(4))
             p_gpu = tree_map(lambda t: t.to(DEVICE), p_cpu)
-            tokens = torch.randint(0, c.vocab_size, (2, 128),
-                                   generator=torch.Generator().manual_seed(5))
-            want, _ = m_cpu.forward(p_cpu, {"tokens": tokens})
-            got, _ = m_gpu.forward(p_gpu, {"tokens": tokens.to(DEVICE)})
-            got, want = got.float().cpu(), want.float()
-            t_cpu = generate(m_cpu, p_cpu, tokens[:, :16], max_new=16,
-                             context_len=32)
-            t_gpu = generate(m_gpu, p_gpu, tokens[:, :16].to(DEVICE),
-                             max_new=16, context_len=32).cpu()
-            same = float((t_cpu == t_gpu).float().mean())
+            batch = zin.materialize(zin.prefill_specs(c, 2, 128), c, seed=5,
+                                    device="cpu")
+            routed = bool(c.num_experts) and dtype == "bfloat16"
+            opts = {"moe_dispatch": "dense"} if routed else None
+            (want, aux_c), r_cpu = moe_routes(
+                lambda: m_cpu.forward(p_cpu, batch, opts))
+            (got, aux_g), r_gpu = moe_routes(lambda: m_gpu.forward(
+                p_gpu, {k: v.to(DEVICE) for k, v in batch.items()}, opts))
+            V = c.vocab_size
+            got, want = got[..., :V].float().cpu(), want[..., :V].float()
+            kept = torch.ones(got.shape[:2], dtype=torch.bool)
+            for a, b in zip(r_cpu, r_gpu):
+                kept &= (a == b.cpu()).all(-1).reshape(kept.shape)
+            moved = 1.0 - float(kept.float().mean())
+            if routed:
+                got, want = got[kept], want[kept]
+            same = 1.0
+            if not c.is_encoder_only:
+                toks = batch["tokens"][:, :16]
+                t_cpu = generate(m_cpu, p_cpu, toks, max_new=16,
+                                 context_len=32)
+                t_gpu = generate(m_gpu, p_gpu, toks.to(DEVICE), max_new=16,
+                                 context_len=32).cpu()
+                same = float((t_cpu == t_gpu).float().mean())
             if dtype == "float32":
                 err, rel = rel_err(got, want)
                 ok = rel <= ZOO_CPU_F32_RTOL and same == 1.0
                 what = f"logits rel {rel:.3e} (tol {ZOO_CPU_F32_RTOL:.0e})"
             else:
                 frob = float((got - want).norm() / want.norm())
-                ok = frob <= ZOO_CPU_BF16_FROB
+                ok = frob <= ZOO_CPU_BF16_FROB and moved <= MOE_MOVED_MAX
                 what = (f"logits relative Frobenius {frob:.3e} (tol "
                         f"{ZOO_CPU_BF16_FROB})")
+            if routed:
+                what += (f" over the tokens whose routes agree (dense "
+                         f"dispatch); routes moved for {moved:.4f} of the "
+                         f"tokens (at most {MOE_MOVED_MAX})")
+            elif c.num_experts:
+                what += f"; routes moved for {moved:.4f} of the tokens"
             must = " (must be 1)" if dtype == "float32" else ""
-            print(f"  {c.name} reduced {dtype}: card vs CPU {what}; greedy "
-                  f"tokens equal {same:.3f}{must} {'ok' if ok else 'FAIL'}")
+            greedy = ("encoder-only, no decode" if c.is_encoder_only else
+                      f"greedy tokens equal {same:.3f}{must}")
+            print(f"  {c.name} reduced {dtype}: card vs CPU {what}; aux "
+                  f"{float(aux_g):.6f} vs {float(aux_c):.6f}; {greedy} "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{c.name} {dtype}: card and CPU "
                                      "disagree")
@@ -1915,8 +2179,8 @@ def zoo_path(chk: Check):
     torch.cuda.synchronize()
     timing = time_zoo_kernels()
     llama_cfg, rwkv_cfg = zoo_configs()
-    model, params, fa_launch, llama_ms = zoo_prefill(llama_cfg,
-                                                     "llama3.2-1b")
+    model, params, _, fa_launch, llama_ms, _ = zoo_prefill(llama_cfg,
+                                                           "llama3.2-1b")
     if fa_launch != {"flash_attention_bh": llama_cfg.num_layers,
                      "wkv6_bh": 0}:
         raise AssertionError(f"llama prefill launches {fa_launch}: expected "
@@ -1924,7 +2188,7 @@ def zoo_path(chk: Check):
     zoo_kernel_vs_cache(model, params, "llama3.2-1b")
     del model, params
     torch.cuda.empty_cache()
-    r_model, r_params, wk_launch, rwkv_ms = zoo_prefill(
+    r_model, r_params, _, wk_launch, rwkv_ms, _ = zoo_prefill(
         rwkv_cfg, f"rwkv6-7b ({RWKV_LAYERS} of 32 layers)")
     if wk_launch != {"flash_attention_bh": 0,
                      "wkv6_bh": rwkv_cfg.num_layers}:
@@ -1934,13 +2198,20 @@ def zoo_path(chk: Check):
     serving = zoo_serving(r_model, r_params)
     del r_model, r_params
     torch.cuda.empty_cache()
-    zoo_card_vs_cpu()
+    zoo_card_vs_cpu(("llama3.2-1b", "rwkv6-7b"))
     launches = {"flash_attention_bh": fa_launch["flash_attention_bh"],
                 "wkv6_bh": wk_launch["wkv6_bh"]}
-    print(f"  zoo phase wall time {time.perf_counter() - t0:.1f} s; prefill "
-          f"llama3.2-1b {llama_ms:.1f} ms, rwkv6-7b ({RWKV_LAYERS} layers) "
-          f"{rwkv_ms:.1f} ms; serving {serving}")
-    return timing, launches
+    print(f"  zoo phase (llama, rwkv6) wall time {time.perf_counter() - t0:.1f}"
+          f" s; prefill llama3.2-1b {llama_ms:.1f} ms, rwkv6-7b "
+          f"({RWKV_LAYERS} layers) {rwkv_ms:.1f} ms; serving {serving}")
+    families = {}
+    for arch in FAMILIES:
+        print(f"  -- {arch} (full width and depth)")
+        families[arch] = family_path(arch)
+    zoo_card_vs_cpu(FAMILIES)
+    print(f"  zoo phase wall time {time.perf_counter() - t0:.1f} s; "
+          f"families {json.dumps(families)}")
+    return timing, launches, families
 
 
 def main() -> int:
@@ -2023,7 +2294,7 @@ def main() -> int:
 
     print("== phase 8: zoo path (Llama-3.2-1B, RWKV6-7B cut to "
           f"{RWKV_LAYERS} layers: prefill, cache path, serving)")
-    zoo_timing, zoo_launches = zoo_path(chk)
+    zoo_timing, zoo_launches, families = zoo_path(chk)
     timing.update(zoo_timing["bf16"])
     launches.update(zoo_launches)
 
@@ -2050,6 +2321,10 @@ def main() -> int:
                         if key.startswith("d80_")})
             row.update({f"f32_{key}": val for key, val in tf.items()
                         if key.startswith("d80_")})
+            if n == "flash_attention_bh":
+                # one launch a layer in each family's prefill
+                row["family_launches"] = {a: f["launches"]
+                                          for a, f in families.items()}
         if n in FUSED_CNN + CODEC:
             # the sweep path's three panels (15 group rounds in all)
             row["sweep_launches"] = sweep_launches[n]

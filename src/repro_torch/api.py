@@ -81,7 +81,7 @@ class Experiment:
         if self._spec_override is not None:
             raise ValueError(
                 "this Experiment wraps a ready-made SweepSpec "
-                "(Experiment.from_spec); with_* methods would be ignored "
+                "(Experiment.from_spec); builder methods would be ignored "
                 "— edit the spec, or start from Experiment(cfg)")
         ex = Experiment(self.cfg)
         ex._schemes = list(self._schemes)
@@ -194,7 +194,7 @@ class Experiment:
         """Run on the chosen engine, on ``device`` (``None``: the card).
 
         ``engine_kw`` passes through to the sweep engine (``timeit``,
-        ``lower_discard``, ``stream_factory``);
+        ``lower_discard``, ``overlap_compile``, ``stream_factory``);
         ``mesh`` applies to the sweep engine only."""
         if engine == "auto":
             engine = "sweep"

@@ -332,6 +332,31 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def _resolve_device_round_fns(forward: Any, lr: float
+                              ) -> Tuple[Callable, Callable]:
+    """``(epoch_all, eval_k)`` for the device round: the folded cohort's
+    epoch and the eval of its G models (``eval_k(params (G, ...), images
+    (G, B, ...)) -> logits (G, B, classes) f32``)."""
+    if forward is None or isinstance(forward, ForwardPolicy):
+        policy = (forward or ForwardPolicy()).validate()
+        return (make_stacked_epoch_fn(policy, lr),
+                make_stacked_eval_forward(policy))
+    if not callable(forward):
+        raise TypeError(
+            f"build_device_round: forward must be a ForwardPolicy, None or "
+            f"a callable forward(params, x) -> logits that the round can "
+            f"train by autograd and evaluate; got {type(forward).__name__}")
+    epoch_all, fwd_eval = _resolve_epoch_fns(forward, lr)
+
+    @torch.no_grad()
+    def eval_each(params, images):
+        return torch.stack([fwd_eval(tree_map(lambda t: t[g], params),
+                                     images[g]).float()
+                            for g in range(images.shape[0])])
+
+    return epoch_all, eval_each
+
+
 def build_device_round(*, scheme: Any, local_epochs: int,
                        steps_per_epoch: int, batch_size: int, lr: float,
                        k_select: int, channel: ChannelParams,
@@ -375,13 +400,15 @@ def build_device_round(*, scheme: Any, local_epochs: int,
     (``ops.make_stacked_eval_forward``).  ``compress_ratio`` scales every
     payload (selection energy, the eq. 14/15 budgets, the bytes).
 
-    ``forward`` is the group's ``ForwardPolicy`` (``None``: the default).
+    ``forward`` is the group's ``ForwardPolicy`` (``None``: the default),
+    or a bare forward callable ``forward(params, x) -> logits``, as
+    ``build_fused_round`` takes one (``_resolve_epoch_fns``): its users
+    train by autograd one at a time and its G models are evaluated one at
+    a time.  Anything else raises a ``TypeError``.
     The round reads nothing back to the host: no ``.item()``, no boolean
     indexing, no tensor made from host data.
     """
-    policy = (forward or ForwardPolicy()).validate()
-    epoch_all = make_stacked_epoch_fn(policy, lr)
-    eval_k = make_stacked_eval_forward(policy)
+    epoch_all, eval_k = _resolve_device_round_fns(forward, lr)
     scheme = get_scheme(scheme)
     aw = float(async_alpha) * 2.0 ** (-float(async_a))
     eff_model_bytes = model_bytes * compress_ratio

@@ -307,7 +307,8 @@ class SweepResult:
 
 def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
                timeit: bool = False, lower_discard: bool = True, device=None,
-               stream_factory: Callable = torch_stream) -> SweepResult:
+               stream_factory: Callable = torch_stream,
+               overlap_compile: bool = True) -> SweepResult:
     """Run a SweepSpec: one round function per distinct program key
     (``_program_key``; a b=1 discard group runs opt's), each group's rounds
     with its S·C rows folded into the kernels' user axis, the metrics read
@@ -317,7 +318,9 @@ def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
     takes ``None`` or ``"auto"`` (one device); the sharded sweep is not
     ported.  ``timeit`` runs each group a second time from its streams and
     reports that run's ``run_s``.  There is no compile step, so
-    ``compile_s`` and ``compile_overlap_s`` are 0.0.
+    ``compile_s`` and ``compile_overlap_s`` are 0.0, and
+    ``overlap_compile`` (the reference's background compile of the next
+    group) is taken and has no effect.
     ``stream_factory(cfg, device)``
     makes each simulation's stream (``cfg.seed`` is the simulation's)."""
     if mesh not in (None, "auto"):
@@ -367,7 +370,8 @@ def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
 
 def run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
               timeit: bool = False, lower_discard: bool = True, device=None,
-              stream_factory: Callable = torch_stream) -> SweepResult:
+              stream_factory: Callable = torch_stream,
+              overlap_compile: bool = True) -> SweepResult:
     """Deprecated entry point; use ``repro_torch.api.Experiment``::
 
         Experiment.from_spec(spec).run(engine="sweep")"""
@@ -377,7 +381,8 @@ def run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
                   DeprecationWarning, stacklevel=2)
     return _run_sweep(spec, mesh=mesh, verbose=verbose, timeit=timeit,
                       lower_discard=lower_discard, device=device,
-                      stream_factory=stream_factory)
+                      stream_factory=stream_factory,
+                      overlap_compile=overlap_compile)
 
 
 def run_hsfl_on_device(cfg: HSFLConfig, mesh: Any = None,

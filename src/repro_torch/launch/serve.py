@@ -3,7 +3,10 @@
 
 Runs on the CUDA card (``--device cuda``, the default, which raises
 without a card) or on the CPU with ``--device cpu``.  Weights are random,
-drawn from ``--seed`` on the run's device.
+drawn from ``--seed`` on the run's device.  ``--arch`` takes every arch of
+the zoo; the prompt is text tokens (qwen2-vl-2b's too), and an
+encoder-only arch (hubert-xlarge) prints that it has no autoregressive
+serving.
 
   # Llama-3.2-1B at full size on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
@@ -12,6 +15,9 @@ drawn from ``--seed`` on the run's device.
   # the reduced config on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch rwkv6-7b --reduced --batch 4 --prompt-len 16 --max-new 32
+
+  # Hymba-1.5B (attention beside mamba) at full size on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
 """
 from __future__ import annotations
 

@@ -1,0 +1,160 @@
+"""Mixture-of-Experts FFN: top-k router and capacity-based scatter dispatch
+(``repro/models/moe.py``).
+
+Two dispatch strategies:
+
+- ``scatter`` (default): tokens are written into a per-expert capacity
+  buffer (E, C, d) at computed slot indices, the experts run as batched
+  SwiGLU products over the expert axis (``torch.bmm``), and the outputs
+  are gathered back.  A token routed past its expert's capacity C is
+  dropped (its weight is zeroed), as in the reference.
+- ``dense``: every expert processes every token and the router weights
+  combine them in the down-projection's contraction.
+
+The router's top-k puts the lower expert index first among equal
+probabilities, as ``jax.lax.top_k`` does: ``torch.topk`` promises no order
+for ties, so the port takes the first k of a stable sort.  The aux loss is
+the Switch load-balance term ``E * sum_e f_e * P_e``.  The experts are
+plain products outside any kernel, in the reference as here.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import module as m
+
+CAPACITY_FACTOR = 1.25
+
+
+def init_moe(gen, cfg: ModelConfig, device=None):
+    """Router (d, E) and the experts' SwiGLU weights stacked on (E, ...)."""
+    pdt = m.dtype_of(cfg.param_dtype)
+    E, d, ff = cfg.num_experts, cfg.d_model, (cfg.moe_d_ff or cfg.d_ff)
+
+    def one_expert(g):
+        return {
+            "w_gate": m.dense_init(g, d, ff, device, dtype=pdt),
+            "w_up": m.dense_init(g, d, ff, device, dtype=pdt),
+            "w_down": m.dense_init(g, ff, d, device, dtype=pdt),
+        }
+
+    return {
+        "router": m.dense_init(gen, d, E, device, scale=0.02, dtype=pdt),
+        "experts": m.stack_layers(one_expert, gen, E),
+    }
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``tokens`` routed tokens (Python floats, as
+    the reference computes it)."""
+    k, E = cfg.experts_per_token, cfg.num_experts
+    return max(8, int(CAPACITY_FACTOR * tokens * k / E + 0.5))
+
+
+def _expert_ffn(wp, x: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, d) against the stacked (E, ...) expert weights."""
+    dt = x.dtype
+    gate = torch.bmm(x, wp["w_gate"].to(dt))
+    up = torch.bmm(x, wp["w_up"].to(dt))
+    return torch.bmm(L.silu(gate) * up, wp["w_down"].to(dt))
+
+
+def top_k(probs: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row, largest first, the lower index first
+    among equals (``jax.lax.top_k``'s order)."""
+    idx = torch.sort(-probs, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(probs, -1, idx), idx
+
+
+def _route(params, cfg: ModelConfig, x2d: torch.Tensor):
+    """Router top-k.  x2d: (T, d) -> (weights (T, k) in x's dtype,
+    experts (T, k) int64, aux f32 scalar)."""
+    logits = (x2d @ params["router"].to(x2d.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                     # (T, E)
+    top_w, top_e = top_k(probs, cfg.experts_per_token)
+    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    # Switch load-balance aux: fraction routed vs mean prob, per expert
+    onehot = torch.nn.functional.one_hot(top_e[:, 0], cfg.num_experts)
+    f = torch.mean(onehot.to(torch.float32), dim=0)
+    P = torch.mean(probs, dim=0)
+    aux = cfg.num_experts * torch.sum(f * P)
+    return top_w.to(x2d.dtype), top_e, aux
+
+
+def moe_dense(params, cfg: ModelConfig,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-experts path.  x: (B, S, d) -> (y, aux).  The router combine is
+    folded into the down-projection's contraction over (e, f)."""
+    B, S, d = x.shape
+    x2d = x.reshape(B * S, d)
+    top_w, top_e, aux = _route(params, cfg, x2d)
+    dt = x.dtype
+    ex = params["experts"]
+    gate = torch.einsum("td,edf->tef", x2d, ex["w_gate"].to(dt))
+    up = torch.einsum("td,edf->tef", x2d, ex["w_up"].to(dt))
+    combine = torch.zeros((B * S, cfg.num_experts), dtype=dt,
+                          device=x.device).scatter_add_(1, top_e, top_w)
+    hidden = (L.silu(gate) * up) * combine[..., None]         # (T, E, F)
+    y = torch.einsum("tef,efd->td", hidden, ex["w_down"].to(dt))
+    return y.reshape(B, S, d), aux
+
+
+def dispatch_slots(flat_e: torch.Tensor, E: int, C: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Buffer row of each routed token (T·k,) and whether it was kept.
+
+    A token's place in its expert is the count of earlier routes to that
+    expert (an exclusive cumsum of one-hots, in token-major order); past
+    the capacity C it goes to the waste row E·C.  The one-hots are laid
+    out expert-major, so that the cumsum runs along rows: on the card a
+    scan down the (T*k, E) columns took 6.4 ms a layer at T*k = 32768."""
+    onehot = torch.nn.functional.one_hot(flat_e, E).T.contiguous()  # (E, T*k)
+    pos_in_e = torch.cumsum(onehot, dim=1) - onehot            # exclusive
+    pos = torch.gather(pos_in_e, 0, flat_e[None])[0]
+    keep = pos < C                                            # capacity drop
+    slot = torch.where(keep, flat_e * C + pos, E * C)         # waste slot
+    return slot, keep
+
+
+def moe_scatter(params, cfg: ModelConfig, x: torch.Tensor,
+                act=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity scatter/gather path.  x: (B, S, d) -> (y, aux).  ``act``
+    (the reference's activation sharding) has no effect on one device."""
+    B, S, d = x.shape
+    T = B * S
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = capacity(T, cfg)
+    x2d = x.reshape(T, d)
+    top_w, top_e, aux = _route(params, cfg, x2d)
+
+    flat_e = top_e.reshape(T * k)
+    flat_w = top_w.reshape(T * k)
+    slot, keep = dispatch_slots(flat_e, E, C)
+    src = torch.repeat_interleave(x2d, k, dim=0) if k > 1 else x2d
+    # kept tokens have distinct slots; only the waste row E*C takes
+    # several writes, and it is thrown away
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, slot, src)
+    expert_out = _expert_ffn(params["experts"],
+                             buf[:E * C].reshape(E, C, d))
+    flat_out = torch.cat([expert_out.reshape(E * C, d),
+                          torch.zeros((1, d), dtype=x.dtype,
+                                      device=x.device)], dim=0)
+    y_tok = flat_out[slot] * (flat_w * keep.to(flat_w.dtype))[:, None]
+    y = y_tok.reshape(T, k, d).sum(dim=1) if k > 1 else y_tok
+    return y.reshape(B, S, d), aux
+
+
+def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
+            dispatch: str = "scatter", act=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``"dense"`` selects ``moe_dense``; anything else the scatter path,
+    as in the reference."""
+    if dispatch == "dense":
+        return moe_dense(params, cfg, x)
+    return moe_scatter(params, cfg, x, act=act)

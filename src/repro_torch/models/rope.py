@@ -37,9 +37,10 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     half = head_dim // 2
     assert sum(mrope_sections) == half, (mrope_sections, half)
     # angle per (section row, freq): pick t/h/w position per frequency band
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=positions.device),
-        torch.tensor(mrope_sections, device=positions.device))   # (half,)
+    # (the band index from two comparisons: no host data reaches the card)
+    f = torch.arange(half, device=positions.device)
+    t, h = mrope_sections[0], mrope_sections[0] + mrope_sections[1]
+    sec_id = (f >= t).long() + (f >= h).long()                    # (half,)
     b, _, s = positions.shape
     pos = torch.gather(positions.to(torch.float32), 1,
                        sec_id[None, :, None].expand(b, half, s))  # (B,half,S)

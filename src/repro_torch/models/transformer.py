@@ -1,17 +1,21 @@
-"""The scanned-transformer spine for the dense and ssm families
+"""The scanned-transformer spine for every family of the zoo
 (``repro/models/transformer.py``).
 
-  dense       : norm -> GQA attention -> res ; norm -> SwiGLU -> res
-  ssm (rwkv6) : norm -> WKV6 time-mix -> res ; norm -> channel-mix -> res
+  dense / vlm / audio : norm -> GQA attention -> res ; norm -> SwiGLU -> res
+  moe                 : ... ; norm -> top-k MoE FFN -> res (aux summed)
+  ssm (rwkv6)         : norm -> WKV6 time-mix -> res ; norm -> channel-mix -> res
+  hybrid (hymba)      : norm -> (attention || mamba) branch-normed mean -> res ;
+                        norm -> SwiGLU -> res
 
 Per-layer weights are stacked on a leading (L, ...) axis, the reference's
 layout; its ``lax.scan`` over layers is a Python loop over ``[i]`` here.
-The families moe, hybrid, vlm and audio are not ported yet (ROADMAP.md,
-queue 1) and raise ``NotImplementedError``.  ``opts`` takes the
-reference's keys:
+Inputs: ``tokens`` (B, S); audio with a stub frontend takes precomputed
+frame embeddings ``embeds`` (B, S, d) and has no embedding table; vlm
+writes ``patch_embeds`` (B, P, d) over the first P positions and takes
+M-RoPE ``positions`` (B, 3, S).  ``opts`` takes the reference's keys:
   impl          'xla' | 'flash'       (both: the flash-attention kernel)
   wkv_impl      'xla' | 'wkv6_kernel' (both: the WKV6 kernel)
-  moe_dispatch  accepted (no moe family here)
+  moe_dispatch  'dense' selects moe_dense, anything else the scatter path
   remat         'none' only (training is not ported yet)
   act_sharding, unroll_layers: accepted, no effect (one device, eager)
   return_hidden forward_full returns the final-normed hidden states
@@ -25,7 +29,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mb
 from repro_torch.models import module as m
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.rope import text_positions
 from repro_torch.utils.tree import tree_map
@@ -33,17 +39,6 @@ from repro_torch.utils.tree import tree_map
 DEFAULT_OPTS = {"impl": "xla", "wkv_impl": "xla",
                 "moe_dispatch": "scatter", "remat": "none",
                 "act_sharding": None, "unroll_layers": False}
-
-PORTED_FAMILIES = ("dense", "ssm")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family whose layers are not ported yet."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (ported: {PORTED_FAMILIES}); see ROADMAP.md, queue 1")
-
 
 def _opts(opts: Optional[dict]) -> dict:
     unknown = set(opts or {}) - set(DEFAULT_OPTS) - {"return_hidden"}
@@ -71,15 +66,28 @@ def _init_layer(gen, cfg: ModelConfig, device=None) -> Dict[str, Any]:
         p["channel"] = rk.init_channel_mix(gen, cfg, device)
         return p
     p["attn"] = attn.init_attention(gen, cfg, device)
-    p["mlp"] = L.init_mlp(gen, cfg, device)
+    if cfg.family == "hybrid":
+        p["mamba"] = mb.init_mamba(gen, cfg, device)
+        p["bnorm_attn"] = L.init_rmsnorm(cfg.d_model, device)
+        p["bnorm_mamba"] = L.init_rmsnorm(cfg.d_model, device)
+    if cfg.num_experts:
+        p["moe"] = moe_mod.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, device)
     return p
+
+
+def _has_embed(cfg: ModelConfig) -> bool:
+    """Audio with a stub frontend reads frame embeddings: no table."""
+    return not (cfg.family == "audio" and cfg.frontend_stub)
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig,
                device=None) -> Dict[str, Any]:
     """Random params from ``gen`` (drawn on its device), on ``device``."""
-    check_family(cfg)
-    params: Dict[str, Any] = {"embed": L.init_embedding(gen, cfg, device)}
+    params: Dict[str, Any] = {}
+    if _has_embed(cfg):
+        params["embed"] = L.init_embedding(gen, cfg, device)
     params["layers"] = m.stack_layers(
         lambda g: _init_layer(g, cfg, device), gen, cfg.num_layers)
     params["final_norm"] = L.init_rmsnorm(cfg.d_model, device)
@@ -93,38 +101,86 @@ def layer(params, i: int) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (train / prefill)
+# block bodies
 # ---------------------------------------------------------------------------
+
+def _branch_mean(p, cfg: ModelConfig, a: torch.Tensor,
+                 s: torch.Tensor) -> torch.Tensor:
+    """Hymba's mix of its attention and mamba branches."""
+    return 0.5 * (L.rmsnorm(p["bnorm_attn"], a, cfg.norm_eps)
+                  + L.rmsnorm(p["bnorm_mamba"], s, cfg.norm_eps))
+
+
+def _mixer_full(p, cfg: ModelConfig, h: torch.Tensor, positions,
+                opts) -> torch.Tensor:
+    if cfg.family == "ssm":
+        return rk.time_mix_full(p["time"], cfg, h, impl=opts["wkv_impl"])
+    a = attn.attend_full(p["attn"], cfg, h, positions, impl=opts["impl"])
+    if cfg.family == "hybrid":
+        return _branch_mean(p, cfg, a, mb.mamba_full(p["mamba"], cfg, h))
+    return a
+
+
+def _ffn_full(p, cfg: ModelConfig, h: torch.Tensor,
+              opts) -> Tuple[torch.Tensor, torch.Tensor]:
+    if cfg.family == "ssm":
+        return rk.channel_mix_full(p["channel"], cfg, h), _zero(h)
+    if cfg.num_experts:
+        return moe_mod.moe_ffn(p["moe"], cfg, h,
+                               dispatch=opts["moe_dispatch"],
+                               act=opts["act_sharding"])
+    return L.mlp(p["mlp"], h), _zero(h)
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
 
 def _layer_full(p, cfg: ModelConfig, x: torch.Tensor, positions, opts):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if cfg.family == "ssm":
-        x = x + rk.time_mix_full(p["time"], cfg, h, impl=opts["wkv_impl"])
-        h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        return x + rk.channel_mix_full(p["channel"], cfg, h)
-    x = x + attn.attend_full(p["attn"], cfg, h, positions, impl=opts["impl"])
+    x = x + _mixer_full(p, cfg, h, positions, opts)
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h)
+    y, aux = _ffn_full(p, cfg, h, opts)
+    return x + y, aux
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
+                 dtype) -> torch.Tensor:
+    """The input embedding of every modality (the stub frontends' carve-out):
+    audio frames as given; vlm patch embeddings over the first P tokens."""
+    if not _has_embed(cfg):
+        return inputs["embeds"].to(dtype)                  # precomputed frames
+    x = L.embed(params["embed"], inputs["tokens"], dtype)
+    if cfg.family == "vlm" and "patch_embeds" in inputs:
+        pe = inputs["patch_embeds"].to(dtype)              # (B, P, d)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
 
 
 def forward_full(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
                  opts: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, vocab_padded), aux scalar 0), or the hidden
-    states (B, S, d) in place of the logits with ``return_hidden``."""
-    check_family(cfg)
+    """Returns (logits (B, S, vocab_padded), aux f32 scalar: the moe
+    layers' load-balance terms summed, else 0), or the hidden states
+    (B, S, d) in place of the logits with ``return_hidden``."""
     opts = _opts(opts)
     dtype = m.dtype_of(cfg.dtype)
-    x = L.embed(params["embed"], inputs["tokens"], dtype)
+    x = embed_inputs(params, cfg, inputs, dtype)
     B, S = x.shape[:2]
     positions = inputs.get("positions")
     if positions is None:
         positions = text_positions(B, S, mrope=bool(cfg.mrope_sections),
                                    device=x.device)
+    auxs = []
     for i in range(cfg.num_layers):
-        x = _layer_full(layer(params, i), cfg, x, positions, opts)
+        x, aux = _layer_full(layer(params, i), cfg, x, positions, opts)
+        auxs.append(aux)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.sum(torch.stack(auxs))
     if opts.get("return_hidden"):
         return x, aux
     return L.lm_logits(params["head"], params.get("embed"), cfg, x), aux
@@ -136,19 +192,21 @@ def forward_full(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
 
 def init_decode_state(cfg: ModelConfig, batch: int, context_len: int,
                       dtype, device=None) -> Dict[str, Any]:
-    """Stacked (L, ...) per-layer state: the KV ring-buffer cache (dense)
-    or the RWKV token shifts and WKV state (ssm)."""
-    check_family(cfg)
+    """Stacked (L, ...) per-layer state: the KV ring-buffer cache (and for
+    hybrid the mamba conv window and ssm state), or the RWKV token shifts
+    and WKV state (ssm)."""
     Lr = cfg.num_layers
     rep = lambda tree: tree_map(
         lambda a: a[None].expand((Lr,) + tuple(a.shape)).clone(), tree)
     if cfg.family == "ssm":
         return {"rwkv": rep(rk.init_rwkv_state(cfg, batch, dtype, device))}
-    return {"kv": rep(attn.init_cache(cfg, batch, context_len, dtype,
-                                      device))}
+    st = {"kv": rep(attn.init_cache(cfg, batch, context_len, dtype, device))}
+    if cfg.family == "hybrid":
+        st["mamba"] = rep(mb.init_mamba_state(cfg, batch, dtype, device))
+    return st
 
 
-def _layer_decode(p, cfg: ModelConfig, x, state, position):
+def _layer_decode(p, cfg: ModelConfig, x, state, position, opts):
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if cfg.family == "ssm":
         y, rst = rk.time_mix_decode(p["time"], cfg, h, state["rwkv"])
@@ -157,9 +215,18 @@ def _layer_decode(p, cfg: ModelConfig, x, state, position):
         y, rst = rk.channel_mix_decode(p["channel"], cfg, h, rst)
         return x + y, {"rwkv": rst}
     y, kv = attn.attend_decode(p["attn"], cfg, h, state["kv"], position)
+    new_state = {"kv": kv}
+    if cfg.family == "hybrid":
+        s, new_state["mamba"] = mb.mamba_decode(p["mamba"], cfg, h,
+                                                state["mamba"])
+        y = _branch_mean(p, cfg, y, s)
     x = x + y
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h), {"kv": kv}
+    if cfg.num_experts:
+        y, _ = moe_mod.moe_ffn(p["moe"], cfg, h, dispatch=opts["moe_dispatch"])
+    else:
+        y = L.mlp(p["mlp"], h)
+    return x + y, new_state
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
@@ -168,14 +235,13 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """token: (B, 1) int; position: (B,) absolute index of the new token.
     Returns (logits (B, 1, vocab_padded), new_state)."""
-    check_family(cfg)
-    _opts(opts)
+    opts = _opts(opts)
     dtype = m.dtype_of(cfg.dtype)
     x = L.embed(params["embed"], token, dtype)
     new_states = []
     for i in range(cfg.num_layers):
         st = tree_map(lambda a: a[i], state)
-        x, st = _layer_decode(layer(params, i), cfg, x, st, position)
+        x, st = _layer_decode(layer(params, i), cfg, x, st, position, opts)
         new_states.append(st)
     new_state = tree_map(lambda *ls: torch.stack(ls), *new_states)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

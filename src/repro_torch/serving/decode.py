@@ -2,8 +2,11 @@
 (``repro/serving/decode.py``).
 
 ``prefill`` feeds a prompt token by token through ``decode_step`` (the
-cache-exact path, no kernel); the production prefill is the full-sequence
-forward (``training.step.make_prefill_step``), which runs the kernels.
+cache-exact path, no kernel), carrying the model's state (the KV cache,
+the RWKV state, or hybrid's KV cache with its mamba conv window and ssm
+state); prompts are text tokens.  The production prefill is the
+full-sequence forward (``training.step.make_prefill_step``), which runs
+the kernels.
 ``generate`` is greedy at temperature 0, else it samples from a
 ``torch.Generator`` (its numbers are not ``jax.random``'s).
 """

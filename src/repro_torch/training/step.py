@@ -15,7 +15,9 @@ from repro_torch.models.registry import Model
 
 
 def make_prefill_step(model: Model, opts: Optional[dict] = None) -> Callable:
-    """Forward-only step (inference prefill / encoder encode)."""
+    """Forward-only step (inference prefill / encoder encode).  ``batch``
+    is ``models.inputs``' prefill structure: ``tokens``; ``embeds`` for
+    audio; ``patch_embeds`` and ``positions`` for vlm."""
 
     @torch.no_grad()
     def step(params, batch: Dict[str, Any]):

@@ -184,3 +184,26 @@ def test_scheme_pins_and_identity():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert get_scheme("async").lowered_program((1.0,)) == "async"
+
+
+def test_from_spec_refusal_and_overlap_compile_match_the_reference():
+    """``from_spec``'s refusal has the reference's words, and ``run``
+    passes ``overlap_compile`` through to the sweep engine, which takes it
+    (there is no compile to overlap: the metrics do not move)."""
+    jax_api = pytest.importorskip("repro.api")
+    jax_sweep = pytest.importorskip("repro.core.sweep")
+    from repro.core.hsfl import HSFLConfig as JConfig
+    with pytest.raises(ValueError) as want:
+        jax_api.Experiment.from_spec(
+            jax_sweep.SweepSpec(base=tiny(JConfig))).with_seeds(0, 1)
+    with pytest.raises(ValueError) as got:
+        Experiment.from_spec(tsweep.SweepSpec(base=tiny())).with_seeds(0, 1)
+    assert str(got.value) == str(want.value)
+    assert "builder methods would be ignored" in str(got.value)
+    ex = Experiment(tiny(rounds=1)).with_scheme("opt", b=2.0)
+    on = ex.run(engine="sweep", device="cpu", overlap_compile=True)
+    off = ex.run(engine="sweep", device="cpu", overlap_compile=False)
+    assert on.compile_overlap_s == off.compile_overlap_s == 0.0
+    for key in on.groups[0].metrics:
+        np.testing.assert_array_equal(on.groups[0].metrics[key],
+                                      off.groups[0].metrics[key])

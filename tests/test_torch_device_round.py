@@ -318,7 +318,7 @@ CASES = {"opt": dict(scheme="opt", b=3), "async": dict(scheme="async", b=1),
          "opt+codec": dict(scheme="opt", b=3, use_delta_codec=True)}
 
 
-def _jax_rounds(cfg):
+def _jax_rounds(cfg, forward=None):
     """The reference round, jitted, over cfg.rounds rounds."""
     sim = {k: jnp.asarray(v) for k, v in jhsfl.build_sim_arrays(cfg).items()}
     params0 = jcnn.init_cnn(jax.random.PRNGKey(cfg.seed))
@@ -337,7 +337,7 @@ def _jax_rounds(cfg):
         model_bytes=cfg.model_bytes,
         ue_model_fraction=cfg.ue_model_fraction,
         compress_ratio=jhsfl.model_compress_ratio(cfg),
-        use_codec=cfg.use_delta_codec, interpret=True))
+        use_codec=cfg.use_delta_codec, interpret=True, forward=forward))
     cfgv = {"b": jnp.float32(cfg.b), "tau_max": jnp.float32(cfg.tau_max),
             "bandwidth_ratio": jnp.float32(1.0)}
     rows = []
@@ -347,13 +347,15 @@ def _jax_rounds(cfg):
     return rows, jax.tree_util.tree_map(np.asarray, carry.params)
 
 
-def _port_rounds(cfg):
-    """The port's round on the replayed draws, one simulation, one config."""
+def _port_rounds(cfg, forward=None):
+    """The port's round on the replayed draws, one simulation, one config
+    (``forward``: the group's policy unless given)."""
     group = compile_spec(SweepSpec(base=cfg, seeds=(cfg.seed,)))[0]
     data = _sim_tensors(_stack_sims(group), "cpu")
     carry, streams, cfgv = _group_inputs(group, data, "cpu", replay_factory)
     assert isinstance(streams, GroupStream)
-    rf = build_device_round(**_group_build_kwargs(group))
+    kw = _group_build_kwargs(group)
+    rf = build_device_round(**{**kw, "forward": forward or kw["forward"]})
     per_round = []
     for t in range(1, cfg.rounds + 1):
         carry, m = rf(carry, t, streams, data, cfgv)
@@ -401,3 +403,21 @@ def test_device_round_matches_jax(case):
         assert sum(int(r["delayed"]) for r in got) > 0, \
             "fixture never delays"
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+
+
+def test_device_round_takes_a_bare_forward_callable():
+    """As the reference's ``_resolve_epoch_fns`` and the port's
+    ``build_fused_round``: a bare ``forward(params, x) -> logits`` trains
+    by autograd and evaluates each row's model; the counts equal the
+    reference's with its own bare forward, over the same draws."""
+    from repro_torch.models import cnn as tcnn
+    kw = CASES["opt"]
+    jcfg, tcfg = tiny(jhsfl.HSFLConfig, **kw), tiny(thsfl.HSFLConfig, **kw)
+    want, jparams = _jax_rounds(jcfg, forward=jcnn.forward)
+    got, tparams = _port_rounds(tcfg, forward=tcnn.forward)
+    assert_rounds_match(got, want, tcfg.n_test)
+    assert_params_close(tparams, jparams)
+    group = compile_spec(SweepSpec(base=tcfg, seeds=(tcfg.seed,)))[0]
+    with pytest.raises(TypeError, match="forward must be a ForwardPolicy"):
+        build_device_round(**{**_group_build_kwargs(group),
+                              "forward": "xla"})

@@ -20,10 +20,11 @@ exact .5 quanta.
 
 The zoo's kernels are held to their twins at Llama-3.2-1B's and
 RWKV6-7B's prefill shapes, on masks, ragged lengths, Sq < Sk and every
-head size, within 1e-5 of the largest magnitude at f32 and one bf16 ulp
-(2**-7) at bf16; a reduced prefill must launch one kernel per layer, and
-the card's forward must match the CPU twins (logits, and greedy tokens at
-f32).  The flash kernels, WKV6 and the fc forward and backward give the
+head size, and flash attention at the moe, hybrid and vlm families'
+group sizes (3, 5 with an odd B·H, and 6), within 1e-5 of the largest
+magnitude at f32 and one bf16 ulp (2**-7) at bf16; a reduced prefill must
+launch one kernel per layer, and the card's forward must match the CPU
+twins (logits, and greedy tokens at f32) for every family.  The flash kernels, WKV6 and the fc forward and backward give the
 same bits on every run; WKV6 runs at every head dim it is built for and
 flash attention past 65 535 rows of B·H.
 
@@ -715,6 +716,34 @@ def test_flash_attention_kernel_matches_twin(cuda, case, dtype):
             RTOL if dtype == "f32" else ZOO_BF16_RTOL)
 
 
+# the zoo's other families' attention (B, H, KV, S, D): granite-moe (G=3),
+# hymba (G=5; 25 q heads, so B·H is odd at B = 1 and 3) and qwen2-vl
+# (G=6, D=128), causal, at their prefill length and ragged
+FAMILY_FLASH_CASES = [(2, 24, 8, 2048, 64), (1, 24, 8, 300, 64),
+                      (1, 25, 5, 2048, 64), (3, 25, 5, 300, 64),
+                      (2, 12, 2, 2048, 128), (1, 12, 2, 300, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", FAMILY_FLASH_CASES,
+                         ids=[f"B{c[0]}-H{c[1]}-KV{c[2]}-S{c[3]}-D{c[4]}"
+                              for c in FAMILY_FLASH_CASES])
+def test_flash_attention_family_group_sizes(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import kernel as knl, ref
+    b, h, kv, s, d = case
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(cuda).manual_seed(b * h + s + d)
+    q = torch.randn(b * h, s, d, device=cuda, generator=g).to(dt)
+    k = torch.randn(b * kv, s, d, device=cuda, generator=g).to(dt)
+    v = torch.randn(b * kv, s, d, device=cuda, generator=g).to(dt)
+    got = knl.flash_attention_bh(q, k, v, group_size=h // kv)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bh_ref(q, k, v, h // kv, True, 0)
+    _within(got.float(), want.float(),
+            RTOL if dtype == "f32" else ZOO_BF16_RTOL)
+
+
 # the f32 kernel's masks at every head dim: (label, Sq, Sk, causal, window);
 # 300 is ragged against its 128-row q tiles and 64-row k tiles, and a
 # window of 20 is narrower than a tile
@@ -996,6 +1025,78 @@ def test_zoo_forward_on_card_matches_cpu(cuda, name, dtype):
         assert torch.equal(t_gpu.cpu(), t_cpu)
     else:
         assert float((got - want).norm() / want.norm()) <= 0.03
+
+
+FAMILIES = {"granite": ("granite-moe-3b-a800m", 2), "hymba": ("hymba-1.5b", 2),
+            "qwen2-vl": ("qwen2-vl-2b", None),
+            "hubert": ("hubert-xlarge", None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_family_forward_on_card_matches_cpu(cuda, name, dtype):
+    """The moe, hybrid, vlm and audio families reduced (granite and hymba
+    with 2 kv heads): one flash launch a layer, and the card's path
+    against the CPU twins from one set of params and inputs, on the real
+    vocabulary (f32 1e-4 of the largest, bf16 3% relative Frobenius) and,
+    for the decoders at f32, the greedy tokens.  moe at bf16 (as
+    ``chip_smoke.zoo_card_vs_cpu``): a router probability that rounds
+    the other way moves a token's expert, so the dense dispatch runs, the
+    tokens whose routes moved are counted (at most 10%) and the bound
+    holds over the others."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import build_model, inputs, moe
+    from repro_torch.serving import generate
+    from repro_torch.utils.tree import tree_map
+    arch, kv = FAMILIES[name]
+    cfg = get_config(arch).reduced().replace(dtype=dtype)
+    if kv:
+        cfg = cfg.replace(num_kv_heads=kv)
+    m_cpu, m_gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    batch = inputs.materialize(inputs.prefill_specs(cfg, 2, 128), cfg,
+                               seed=1, device="cpu")
+    routed = bool(cfg.num_experts) and dtype == "bfloat16"
+    opts = {"moe_dispatch": "dense"} if routed else None
+    plain, routes = moe.top_k, []
+
+    def recorded(probs, k):                    # the set of experts
+        w, e = plain(probs, k)
+        routes.append(torch.sort(e, dim=-1).values.cpu())
+        return w, e
+
+    moe.top_k = recorded
+    try:
+        want, _ = m_cpu.forward(p_cpu, batch, opts)
+        fa.reset_launches()
+        got, _ = m_gpu.forward(p_gpu, {k: v.to(cuda)
+                                       for k, v in batch.items()}, opts)
+        torch.cuda.synchronize()
+    finally:
+        moe.top_k = plain
+    assert fa.LAUNCHES["flash_attention_bh"] == cfg.num_layers
+    V = cfg.vocab_size
+    got, want = got[..., :V].float().cpu(), want[..., :V].float()
+    if routed:
+        n = len(routes) // 2
+        kept = torch.ones(got.shape[:2], dtype=torch.bool)
+        for a, b in zip(routes[:n], routes[n:]):
+            kept &= (a == b).all(-1).reshape(kept.shape)
+        assert 1.0 - float(kept.float().mean()) <= 0.10
+        got, want = got[kept], want[kept]
+    if dtype == "bfloat16":
+        assert float((got - want).norm() / want.norm()) <= 0.03
+        return
+    _within(got, want, 1e-4)
+    if not cfg.is_encoder_only:
+        prompt = batch["tokens"][:, :12]
+        t_cpu = generate(m_cpu, p_cpu, prompt, max_new=8, context_len=20)
+        t_gpu = generate(m_gpu, p_gpu, prompt.to(cuda), max_new=8,
+                         context_len=20)
+        assert torch.equal(t_gpu.cpu(), t_cpu)
 
 
 # ---------------------------------------------------------------------------

@@ -251,3 +251,19 @@ def test_default_stream_indices_stay_below_clen():
     assert idx.shape == (2, 3, 4000) and idx.dtype == torch.int64
     assert bool((idx >= 0).all()) and bool((idx < clen[..., None]).all())
     assert idx[1, 0].unique().numel() > 250
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_run_sweep_takes_overlap_compile(overlap):
+    """The reference's ``overlap_compile`` argument, taken by both entry
+    points with no effect: there is no compile to overlap."""
+    spec = tsweep.SweepSpec(base=tiny(rounds=1), seeds=(0,), b=(2.0,))
+    want = tsweep._run_sweep(spec, device="cpu")
+    got = tsweep._run_sweep(spec, device="cpu", overlap_compile=overlap)
+    with pytest.warns(DeprecationWarning):
+        shim = tsweep.run_sweep(spec, device="cpu", overlap_compile=overlap)
+    for res in (got, shim):
+        assert res.compile_overlap_s == 0.0
+        for key in want.groups[0].metrics:
+            np.testing.assert_array_equal(res.groups[0].metrics[key],
+                                          want.groups[0].metrics[key])

@@ -251,14 +251,6 @@ def test_rope_angles_match_jax(sections):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "hymba-1.5b",
-                                  "qwen2-vl-2b", "hubert-xlarge"])
-def test_unported_families_raise(arch):
-    cfg = configs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        build_model(cfg, "cpu")
-
-
 def test_cnn_family_wraps_the_paper_model():
     cfg = configs.get_config("paper-cnn")
     model = build_model(cfg, "cpu")
