@@ -91,7 +91,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    each group's ms per simulated round per (simulation, config) beside
    phase 4's fused round, the device busy share of one group round under
    the profiler, and the final test accuracy;
-10. the card's line, the kernels' JSON line, and the result line.
+10. zoo training (TF32 off).  (a) ``make_train_step`` on Llama-3.2-1B as
+   configured (16 layers, d 2048, vocab 128 256, tied; bf16 compute on f32
+   params) with AdamW + cosine and a clip of 1.0, B=2 x S=2048 from
+   ``make_token_stream`` (S > 1024: ``_sdpa_chunked``), counts set to 0
+   just before: one warm-up and 4 timed steps on one batch, ms per step,
+   training tokens/s, peak memory, the busy share of one step under the
+   profiler; the loss finite and falling, every param leaf moved, no
+   flash or WKV6 launch, and a no_grad prefill after it one flash launch
+   a layer; (b) loss and grads at the same params under remat "full" and
+   "dots" (bitwise expected, 1e-6 of the largest) and the fused head (loss
+   within 1e-5), with each one's peak memory; (c) 2 steps, a checkpoint, a
+   restore into a fresh state and 2 more against 4 steps (reduced, bit
+   for bit), and ``launch/train.py`` on the card resumed from its step-10
+   checkpoint against the uninterrupted run (byte for byte); (d) every
+   family of ``ARCH_IDS`` reduced at f32: one AdamW step on the card
+   against the CPU (loss 1e-5, params 1e-4 of the largest); (e) the
+   three example twins as subprocesses (``uav_fl_sim --rounds 2``).  No
+   zoo kernel may launch in any training step of the phase.  It prints
+   its wall time;
+11. the card's line, the kernels' JSON line (the zoo rows with
+   ``train_launches``, phase 10's count, 0), and the result line.
 
 It imports nothing of JAX.  Without a CUDA card it exits 2 and prints no
 result.
@@ -2214,6 +2234,339 @@ def zoo_path(chk: Check):
     return timing, launches, families
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the zoo's training path
+# ---------------------------------------------------------------------------
+
+# Llama-3.2-1B as configured (16 layers, d 2048, vocab 128 256, tied; bf16
+# compute on f32 params), B x S tokens: S > 1024 takes _sdpa_chunked
+TRAIN_B, TRAIN_S = 2, 2048
+TRAIN_STEPS = 4                 # timed, after one warm-up step
+TRAIN_LR = 3e-4                 # the launcher's AdamW peak
+# remat recomputes the same ops on the same inputs: bitwise is expected,
+# 1e-6 of the largest magnitude is the bound
+REMAT_RTOL = 1e-6
+# the fused head sums the same terms chunk by chunk (the reference's
+# test_numerics bound)
+FUSED_HEAD_RTOL = 1e-5
+# card vs CPU, one AdamW step at f32 from one param tree: the CPU tests'
+# bounds against JAX (loss 1e-5 relative, params 1e-4 of the largest)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_RTOL = 1e-4
+TRAIN_CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_train_ckpt")
+EXAMPLES = (("quickstart", []), ("serve_batched", []),
+            ("uav_fl_sim", ["--rounds", "2"]))
+
+
+def gb(nbytes: float) -> float:
+    return nbytes / 2 ** 30
+
+
+def token_batch(cfg, b: int, s: int, seed: int = 0, device=None):
+    """``b`` sequences of the synthetic token stream on ``device``."""
+    import torch
+    from repro_torch.data import make_token_stream
+    ds = make_token_stream(b, s, vocab=cfg.vocab_size, seed=seed)
+    dev = DEVICE if device is None else device
+    return {"tokens": torch.tensor(ds.x, device=dev),
+            "labels": torch.tensor(ds.y, device=dev)}
+
+
+def add_launches(total: dict, label: str) -> None:
+    """Add the zoo kernels' counts since the last reset to ``total``."""
+    got = all_launches()
+    for n in ZOO:
+        total[n] += got[n]
+        if got[n]:
+            raise AssertionError(f"{label}: {n} launched {got[n]} times in "
+                                 f"training (it has no backward)")
+
+
+def rel_tree_err(got, want) -> float:
+    """Largest |got - want| over the largest |want|, over a tree's leaves."""
+    from repro_torch.utils.tree import tree_leaves
+    scale = max(float(t.abs().max()) for t in tree_leaves(want))
+    err = max(float((a.to(b.device) - b).abs().max())
+              for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    return err / max(scale, 1e-30)
+
+
+def train_llama(train_launches: dict) -> dict:
+    """(10a) ``make_train_step`` on Llama-3.2-1B at full width and depth
+    with AdamW + cosine and a clip of 1.0: one warm-up and TRAIN_STEPS
+    timed steps on one fixed batch, then one step under the profiler and
+    a no_grad prefill; (10b) loss and grads under remat none/full/dots and
+    the fused head at the same shape.  Returns the numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine
+    from repro_torch.training import (create_train_state, make_prefill_step,
+                                      make_train_step)
+    from repro_torch.training.step import value_and_grad
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg, DEVICE)
+    params = model.init(torch.Generator(DEVICE).manual_seed(0))
+    p0 = tree_map(lambda t: t.cpu(), params)
+    batch = token_batch(cfg, TRAIN_B, TRAIN_S)
+    opt = adamw(cosine(TRAIN_LR, 1, 100))
+    state = create_train_state(params, opt)
+    del params
+    step = make_train_step(model, opt, grad_clip=1.0)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    state, met = step(state, batch)                       # warm-up
+    losses, times = [float(met["loss"])], []
+    for _ in range(TRAIN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    add_launches(train_launches, "llama3.2-1b train steps")
+    ms = float(np.median(times))
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"llama3.2-1b train losses {losses}: not "
+                             f"finite, or the last not below the first")
+    still = [i for i, (a, b) in enumerate(zip(tree_leaves(p0),
+                                              tree_leaves(state.params)))
+             if torch.equal(a, b.cpu())]
+    if still:
+        raise AssertionError(f"param leaves {still} did not move")
+    n_params = model.param_count(state.params)
+    print(f"  llama3.2-1b train step: {cfg.num_layers} layers, d="
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B params (f32, compute "
+          f"{cfg.dtype}), B={TRAIN_B} x S={TRAIN_S}, AdamW + cosine, clip "
+          f"1.0: {ms:.1f} ms per step (median of {TRAIN_STEPS}: "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f"), {TRAIN_B * TRAIN_S / ms * 1e3:.0f} training tokens/s; "
+          f"peak {gb(peak):.2f} GiB; losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; every one of {len(tree_leaves(p0))} param leaves moved; "
+          f"launches { {n: 0 for n in ZOO} }")
+    del p0
+    busy = profile_step(lambda: step(state, batch), "llama3.2-1b train step")
+    reset_all_launches()
+    make_prefill_step(model)(state.params, {"tokens": batch["tokens"]})
+    sync()
+    pre = {n: all_launches()[n] for n in ZOO}
+    if pre != {"flash_attention_bh": cfg.num_layers, "wkv6_bh": 0}:
+        raise AssertionError(f"no_grad prefill after training launched "
+                             f"{pre}: expected one flash attention a layer")
+    print(f"  no_grad prefill after the steps: launches {pre}")
+
+    # (10b) the same params and batch under each remat policy, and the
+    # fused head
+    peaks, grad_ms, grads0, loss0 = {}, {}, None, None
+    for label, opts in (("none", None), ("full", {"remat": "full"}),
+                        ("dots", {"remat": "dots"}),
+                        ("fused_head", {"fused_head": True})):
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t1 = time.perf_counter()
+        (loss, _), grads = value_and_grad(model, state.params, batch, opts)
+        sync()
+        grad_ms[label] = (time.perf_counter() - t1) * 1e3
+        peaks[label] = (torch.cuda.max_memory_allocated(), base)
+        add_launches(train_launches, f"llama3.2-1b value_and_grad {label}")
+        loss = float(loss)
+        if grads0 is None:
+            grads0, loss0 = grads, loss
+            continue
+        lerr = abs(loss - loss0) / abs(loss0)
+        gerr = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(tree_leaves(grads), tree_leaves(grads0)))
+        same = loss == loss0 and all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(grads), tree_leaves(grads0)))
+        tol = FUSED_HEAD_RTOL if label == "fused_head" else REMAT_RTOL
+        ok = lerr <= tol and (label == "fused_head" or gerr <= tol)
+        print(f"  {label}: loss {loss:.6f} vs {loss0:.6f} (relative "
+              f"{lerr:.2e}), grads within {gerr:.2e} of the largest per "
+              f"leaf, bitwise {same} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} moved the loss or the grads")
+        del grads
+    print(f"  peak memory of loss + grads at B={TRAIN_B} x S={TRAIN_S} (on "
+          f"top of the resident state): "
+          + ", ".join(f"{k} {gb(p):.2f} GiB ({gb(p - b):.2f} above "
+                      f"{gb(b):.2f})" for k, (p, b) in peaks.items()))
+    print("  loss + grads ms (one call each, host clock): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in grad_ms.items())
+          + f"; the rest of a step (clip, AdamW, apply) ~"
+          f"{ms - grad_ms['none']:.1f} ms")
+    del grads0, state
+    torch.cuda.empty_cache()
+    return {"ms": ms, "tokens_per_s": TRAIN_B * TRAIN_S / ms * 1e3,
+            "peak_gib": gb(peak), "busy": busy, "losses": losses,
+            "remat_peak_gib": {k: gb(p) for k, (p, _) in peaks.items()},
+            "grad_ms": grad_ms}
+
+
+def train_resume(train_launches: dict) -> None:
+    """(10c) 2 steps, a checkpoint, a restore into a fresh state and 2
+    more steps against 4 steps without the break (reduced Llama-3.2-1B,
+    one batch a step): equal bit for bit.  Then ``launch/train.py`` on the
+    card, 20 steps with a checkpoint every 10, and a second run resumed
+    from its step-10 checkpoint: the step-20 checkpoints are equal byte
+    for byte."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine
+    from repro_torch.training import create_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_config("llama3.2-1b").reduced()
+    model = build_model(cfg, DEVICE)
+    opt = adamw(cosine(TRAIN_LR, 1, 4), weight_decay=0.1)
+    step = make_train_step(model, opt, grad_clip=1.0)
+    batches = [token_batch(cfg, 2, 128, seed=i) for i in range(4)]
+    fresh = lambda seed: create_train_state(
+        model.init(torch.Generator(DEVICE).manual_seed(seed)), opt)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    reset_all_launches()
+    whole = fresh(0)
+    for b in batches:
+        whole, _ = step(whole, b)
+    broken = fresh(0)
+    for b in batches[:2]:
+        broken, _ = step(broken, b)
+    save_checkpoint(os.path.join(TRAIN_CKPT_DIR, "state"), 2, broken)
+    broken = restore_checkpoint(os.path.join(TRAIN_CKPT_DIR, "state"), 2,
+                                fresh(1))
+    for b in batches[2:]:
+        broken, _ = step(broken, b)
+    sync()
+    add_launches(train_launches, "resume steps")
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(whole),
+                                                 tree_leaves(broken)))
+    print(f"  2 steps + checkpoint + restore + 2 steps vs 4 steps "
+          f"(reduced llama3.2-1b, {len(tree_leaves(whole))} leaves: params, "
+          f"moments, steps): bitwise {same}")
+    if not same:
+        raise AssertionError("the resumed state differs from the "
+                             "uninterrupted one")
+    argv = ["--device", DEVICE, "--reduced", "--arch", "llama3.2-1b",
+            "--steps", "20",
+            "--batch", "2", "--seq", "128", "--ckpt-every", "10",
+            "--log-every", "10"]
+    runs = {}
+    for label in ("whole", "resumed"):
+        d = os.path.join(TRAIN_CKPT_DIR, label)
+        if label == "resumed":
+            shutil.copytree(os.path.join(TRAIN_CKPT_DIR, "whole", "10"),
+                            os.path.join(d, "10"))
+        out = io.StringIO()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train.main(argv + ["--ckpt-dir", d])
+        sync()
+        add_launches(train_launches, f"launch/train.py {label}")
+        runs[label] = (out.getvalue(), time.perf_counter() - t0)
+        with open(os.path.join(d, "20", "checkpoint.msgpack"), "rb") as f:
+            runs[label] += (f.read(),)
+    text, sec, _ = runs["resumed"]
+    equal = runs["whole"][2] == runs["resumed"][2]
+    print(f"  launch/train.py --reduced on the card: 20 steps in "
+          f"{runs['whole'][1]:.1f} s ("
+          + runs["whole"][0].strip().splitlines()[-1]
+          + f"); resumed from step 10 in {sec:.1f} s, step-20 checkpoints "
+          f"equal byte for byte {equal}")
+    if "restored checkpoint at step 10" not in text or not equal:
+        raise AssertionError(f"launch/train.py did not resume to the same "
+                             f"state:\n{text}")
+
+
+def train_card_vs_cpu(train_launches: dict) -> None:
+    """(10d) every family of ``ARCH_IDS`` reduced (llama, granite and hymba
+    with 2 kv heads), f32: one AdamW step (clip 1.0) on the card and on
+    the CPU from one param tree and one batch."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import build_model, inputs as zin
+    from repro_torch.optim import adamw, cosine
+    from repro_torch.training import create_train_state, make_train_step
+    from repro_torch.utils.tree import tree_map
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        if arch in REDUCED_KV:
+            cfg = cfg.replace(num_kv_heads=REDUCED_KV[arch])
+        batch = zin.materialize(zin.train_specs(cfg, 2, 64), cfg, seed=2,
+                                device="cpu")
+        p_cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(3))
+        out = []
+        for dev in ("cpu", DEVICE):
+            model = build_model(cfg, dev)
+            opt = adamw(cosine(TRAIN_LR, 1, 4), weight_decay=0.1)
+            state = create_train_state(tree_map(lambda t: t.to(dev), p_cpu),
+                                       opt)
+            reset_all_launches()
+            state, met = make_train_step(model, opt, grad_clip=1.0)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+            add_launches(train_launches, f"{arch} card step")
+            out.append((float(met["loss"]), state))
+        (l_cpu, s_cpu), (l_gpu, s_gpu) = out
+        lerr = abs(l_gpu - l_cpu) / abs(l_cpu)
+        perr = rel_tree_err(s_gpu.params, s_cpu.params)
+        ok = lerr <= TRAIN_LOSS_RTOL and perr <= TRAIN_PARAM_RTOL
+        print(f"  {arch} reduced f32, one AdamW step: loss {l_gpu:.6f} vs "
+              f"CPU {l_cpu:.6f} (relative {lerr:.2e}, tol "
+              f"{TRAIN_LOSS_RTOL:.0e}), params within {perr:.2e} of the "
+              f"largest (tol {TRAIN_PARAM_RTOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{arch}: card and CPU train steps "
+                                 "disagree")
+
+
+def run_examples() -> dict:
+    """(10e) the three example twins as subprocesses on the card, each to
+    a zero exit; returns their wall seconds."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    secs = {}
+    for name, argv in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+        secs[name] = time.perf_counter() - t0
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        print(f"  examples/{name} {' '.join(argv)}: exit {proc.returncode} "
+              f"in {secs[name]:.1f} s; last line: {last}")
+        if proc.returncode != 0:
+            raise AssertionError(f"example {name} failed:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+    return secs
+
+
+def train_path():
+    """Phase 10; returns (the zoo kernels' launches over every training
+    step of the phase, which must be 0, and the Llama-3.2-1B numbers)."""
+    import torch
+    t0 = time.perf_counter()
+    train_launches = dict.fromkeys(ZOO, 0)
+    numbers = train_llama(train_launches)
+    torch.cuda.empty_cache()
+    train_resume(train_launches)
+    train_card_vs_cpu(train_launches)
+    numbers["examples_s"] = run_examples()
+    print(f"  train phase wall time {time.perf_counter() - t0:.1f} s; zoo "
+          f"kernel launches in training {train_launches}")
+    return train_launches, numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2302,6 +2655,10 @@ def main() -> int:
           "panel, Fig. 3(c) budget axis, codec panel)")
     sweep_launches, sweep_numbers = sweep_path(fused_ms)
 
+    print("== phase 10: zoo training (Llama-3.2-1B, B=2 x S=2048: steps, "
+          "remat, fused head, resume, card vs CPU, the example twins)")
+    train_launches, train_numbers = train_path()
+
     rows = []
     for n in REPLACES:
         t = timing[n]
@@ -2321,6 +2678,8 @@ def main() -> int:
                         if key.startswith("d80_")})
             row.update({f"f32_{key}": val for key, val in tf.items()
                         if key.startswith("d80_")})
+            # phase 10's training steps go through the einsum paths
+            row["train_launches"] = train_launches[n]
             if n == "flash_attention_bh":
                 # one launch a layer in each family's prefill
                 row["family_launches"] = {a: f["launches"]
@@ -2356,6 +2715,15 @@ def main() -> int:
           + ", ".join(f"{k} {v['per_row_ms']:.2f} ms x{v['rows']} busy "
                       f"{busy[k]}" for k, v in sweep_numbers.items())
           + f"; fused opt round {fused_ms:.1f} ms")
+    print(f"llama3.2-1b training (B={TRAIN_B} x S={TRAIN_S}, bf16 compute, "
+          f"f32 params, AdamW): {train_numbers['ms']:.1f} ms per step, "
+          f"{train_numbers['tokens_per_s']:.0f} tokens/s, peak "
+          f"{train_numbers['peak_gib']:.2f} GiB, device busy share "
+          + ("not measured" if train_numbers["busy"] is None
+             else f"{train_numbers['busy']:.4f}")
+          + "; loss + grads peak GiB by remat: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in
+                      train_numbers["remat_peak_gib"].items()))
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -125,6 +125,22 @@ def on_cpu(*ts) -> bool:
                      f"{sorted(str(t.device) for t in ts)}")
 
 
+def refuse_grad(name: str, *ts) -> None:
+    """Raise where autograd would record through a forward-only kernel.
+
+    The kernel writes its output through a raw pointer, so autograd never
+    sees it: a gradient to its inputs would be cut without a word.  The
+    reference's Pallas kernel has no backward either (``jax.grad`` through
+    it fails); training takes the reference's einsum path instead.  On the
+    CPU as on the card, so that the CPU tests see what the card would do."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name} has no backward (nor has the reference's Pallas "
+            f"kernel): call it under torch.no_grad() or on inputs that need "
+            f"no gradient; training goes through the einsum path "
+            f"(impl='xla', wkv_impl='xla')")
+
+
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 

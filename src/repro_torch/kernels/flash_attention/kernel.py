@@ -23,6 +23,10 @@ and 128 (80, hubert-xlarge's, runs at bf16 on the 128-wide tensor-core
 layout, its extra columns zeros); any other D raises, where the
 reference takes any.
 
+The kernel is forward only, as the reference's is: where autograd would
+record (grad enabled and an input that requires a gradient) the wrapper
+raises, on the CPU and the card alike (``_build.refuse_grad``).
+
 ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
@@ -56,6 +60,7 @@ def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention_bh: expected q (BH, Sq, D) and "
                          f"k, v (BKV, Sk, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _build.refuse_grad("flash_attention_bh", q, k, v)
     bh, sq, d = q.shape
     bkv, sk, dk = k.shape
     if bh != bkv * group_size or dk != d:

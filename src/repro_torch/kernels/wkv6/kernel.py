@@ -18,6 +18,10 @@ kernel is built for the head dims of ``HEAD_DIMS``; any other raises.
 ``chunk`` is the reference's TPU chunk length, accepted and unused: the
 kernel walks the timesteps in a loop and takes any ``S >= 1``.
 
+The kernel is forward only, as the reference's is: where autograd would
+record (grad enabled and an input that requires a gradient) the wrapper
+raises, on the CPU and the card alike (``_build.refuse_grad``).
+
 ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
@@ -62,6 +66,7 @@ def wkv6_bh(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            for a in (k, v, w)):
         raise ValueError(f"wkv6_bh: expected r, k, v, w of one (BH, S, D) "
                          f"shape, got {[tuple(a.shape) for a in (r, k, v, w)]}")
+    _build.refuse_grad("wkv6_bh", r, k, v, w, u)
     bh, s, d = r.shape
     if tuple(u.shape) != (bh, d) or s < 1:
         raise ValueError(f"wkv6_bh: expected u {(bh, d)} and S >= 1, got "

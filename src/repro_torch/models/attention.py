@@ -6,21 +6,30 @@ bidirectional masking, sliding-window masking (dense long-context
 variant), RoPE/M-RoPE applied at write time (the KV cache stores rotated
 keys), and a ring-buffer cache for windowed decode.
 
-Full-sequence attention always goes through the flash-attention wrapper
-(``repro_torch.kernels.flash_attention``): ``impl="xla"`` and
-``impl="flash"`` both name it.  On a CUDA tensor it launches the CUDA
-kernel, on a CPU tensor it runs the kernel's plain twin.  The reference's
-einsum paths (``_sdpa_chunked``, and ``_sdpa`` in ``attend_full``) are
-never taken.  Decode attends one query over the ring-buffer cache with
-``_sdpa`` in plain torch, as the reference does: that computation lies
-outside any kernel there, and its mask is not the kernel's end-aligned
-causal mask.
+Full-sequence attention takes one of two paths, by whether autograd
+records (``module.records_grad``: grad mode on and q, k or v requiring a
+gradient):
+
+- inference (``torch.no_grad()``, or no input that needs a gradient):
+  the flash-attention wrapper (``repro_torch.kernels.flash_attention``)
+  for ``impl="xla"`` and ``impl="flash"`` alike.  On a CUDA tensor it
+  launches the CUDA kernel, on a CPU tensor it runs the kernel's twin;
+- training: the reference's own ``impl="xla"`` computation, ``_sdpa``
+  with ``full_mask`` up to ``CHUNK_THRESHOLD`` tokens and
+  ``_sdpa_chunked`` above it, in plain torch.  The kernel has no backward,
+  nor has the reference's (``jax.grad`` through ``impl="flash"`` fails),
+  so ``impl="flash"`` raises there.
+
+Decode attends one query over the ring-buffer cache with ``_sdpa`` in
+plain torch, as the reference does: that computation lies outside any
+kernel there, and its mask is not the kernel's end-aligned causal mask.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -29,7 +38,10 @@ from repro_torch.models.rope import apply_rope, rope_angles
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
-IMPLS = ("xla", "flash")       # both name the flash-attention kernel path
+IMPLS = ("xla", "flash")       # both name the kernel path in inference
+
+CHUNK_THRESHOLD = 1024     # beyond this, training takes the q-chunked path
+Q_CHUNK = 256
 
 
 def init_attention(gen, cfg: ModelConfig, device=None):
@@ -93,10 +105,48 @@ def full_mask(cfg: ModelConfig, seq: int, device=None) -> torch.Tensor:
     return mask[None, None, None]
 
 
+def _sdpa_chunked(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+    """Memory-efficient attention for training: a loop over query chunks
+    of ``Q_CHUNK`` rows, KV repeated to (B, Sk, H, D), each chunk's body
+    recomputed in the backward (``checkpoint``), so the full (S, S) score
+    tensor is never held.  q: (B, Sq, H, D) with Sq % Q_CHUNK == 0."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    if KV != H:
+        # the reference's jnp.repeat on the head axis, as a broadcast: its
+        # backward is a sum over the group, where repeat_interleave's
+        # adds with atomics on the card (not bitwise repeatable)
+        rep = lambda a: a[:, :, :, None].expand(
+            B, a.shape[1], KV, H // KV, D).reshape(B, a.shape[1], H, D)
+        k, v = rep(k), rep(v)
+    if Sq % Q_CHUNK:
+        raise ValueError(f"_sdpa_chunked: Sq={Sq} is not a multiple of "
+                         f"Q_CHUNK={Q_CHUNK}")
+    scale = D ** -0.5
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+
+    def chunk_body(qc: torch.Tensor, q0: int) -> torch.Tensor:
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, k).to(torch.float32) * scale
+        qpos = q0 + torch.arange(Q_CHUNK, device=q.device)[:, None]
+        mask = torch.ones((Q_CHUNK, k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if cfg.causal:
+            mask &= kpos <= qpos
+        if cfg.sliding_window:
+            mask &= (qpos - kpos) < cfg.sliding_window
+        s = torch.where(mask[None, None], s, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+    outs = [checkpoint(chunk_body, q[:, q0:q0 + Q_CHUNK], q0,
+                       use_reentrant=False)
+            for q0 in range(0, Sq, Q_CHUNK)]
+    return torch.cat(outs, dim=1).reshape(B, Sq, H * D)
+
+
 def attend_full(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, impl: str = "xla") -> torch.Tensor:
-    """Full-sequence attention for train/prefill through the flash-attention
-    kernel.  x: (B, S, d)."""
+    """Full-sequence attention for train/prefill.  x: (B, S, d)."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl must be one of {IMPLS}, got "
                          f"{impl!r}")
@@ -105,9 +155,20 @@ def attend_full(params, cfg: ModelConfig, x: torch.Tensor,
                          cfg.mrope_sections)
     q = apply_rope(q, angles)
     k = apply_rope(k, angles)
-    out = fa_ops.flash_attention(q, k, v, causal=cfg.causal,
-                                 window=cfg.sliding_window or 0)
-    out = out.reshape(*x.shape[:2], cfg.q_dim)
+    S = x.shape[1]
+    if not m.records_grad(q, k, v):
+        out = fa_ops.flash_attention(q, k, v, causal=cfg.causal,
+                                     window=cfg.sliding_window or 0)
+        out = out.reshape(*x.shape[:2], cfg.q_dim)
+    elif impl == "flash":
+        raise NotImplementedError(
+            "impl='flash' under autograd: the flash-attention kernel has no "
+            "backward, nor has the reference's (jax.grad through "
+            "impl='flash' fails); train with impl='xla'")
+    elif S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
+        out = _sdpa_chunked(cfg, q, k, v)
+    else:
+        out = _sdpa(cfg, q, k, v, full_mask(cfg, S, x.device))
     return out @ params["wo"].to(x.dtype)
 
 

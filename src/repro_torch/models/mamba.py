@@ -82,8 +82,13 @@ def selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
 
     Each step is the reference's ``h = decay * h + (dt x)[..., None] * B``
     (a product, then a sum); the decays and inputs of SCAN_CHUNK steps are
-    formed together, and their states contracted with C together."""
+    formed together, and their states contracted with C together.  In
+    inference the states are written into one buffer (``out=``, in place);
+    where autograd records, which neither allows, each step makes a new
+    tensor and the chunk's states are stacked: the same two roundings a
+    step, so the two forms agree bit for bit."""
     B_, S, di = xf.shape
+    train = m.records_grad(dt, Bm, Cm, xf, A)
     h = torch.zeros((B_, di, A.shape[1]), dtype=torch.float32,
                     device=xf.device)
     ys = []
@@ -92,10 +97,17 @@ def selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         dtc = dt[:, t0:t1, :, None]
         decay = torch.exp(dtc * A)                            # (B,c,di,N)
         inp = (dt[:, t0:t1] * xf[:, t0:t1])[..., None] * Bm[:, t0:t1, None, :]
-        hs = torch.empty_like(decay)
-        for j in range(t1 - t0):
-            torch.mul(decay[:, j], h, out=hs[:, j])
-            h = hs[:, j].add_(inp[:, j])
+        if train:
+            states = []
+            for j in range(t1 - t0):
+                h = decay[:, j] * h + inp[:, j]
+                states.append(h)
+            hs = torch.stack(states, dim=1)
+        else:
+            hs = torch.empty_like(decay)
+            for j in range(t1 - t0):
+                torch.mul(decay[:, j], h, out=hs[:, j])
+                h = hs[:, j].add_(inp[:, j])
         ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cm[:, t0:t1]))
     return torch.cat(ys, dim=1)
 

@@ -77,6 +77,14 @@ def stack_layers(init_fn: Callable[[torch.Generator], Params],
     return tree_map(lambda *ls: torch.stack(ls), *layers)
 
 
+def records_grad(*ts) -> bool:
+    """True where autograd records an op on ``ts``: grad mode is on and one
+    of them requires a gradient.  The full-sequence paths take the
+    reference's differentiable einsum code there, and the forward-only
+    kernels elsewhere."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def param_count(params: Params) -> int:
     return sum(int(x.numel()) for x in tree_leaves(params))
 

@@ -8,13 +8,20 @@ mixes.  The WKV recurrence per head (state S in R^{DxD}):
     y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-Full-sequence mode goes through the WKV6 wrapper
-(``repro_torch.kernels.wkv6``): ``wkv_impl="xla"`` and ``"wkv6_kernel"``
-both name it.  On a CUDA tensor it launches the CUDA kernel, on a CPU
-tensor it runs the kernel's twin, the reference's ``wkv_scan`` loop
-(``kernels/wkv6/ref.py``).  w reaches it in
-f32 whatever the compute dtype, as ``_decay`` returns it.  Decode carries
-(shift_t, shift_c, S) and stays plain torch, as in the reference.
+Full-sequence mode takes one of two paths, by whether autograd records
+(``module.records_grad``):
+
+- inference: the WKV6 wrapper (``repro_torch.kernels.wkv6``) for
+  ``wkv_impl="xla"`` and ``"wkv6_kernel"`` alike.  On a CUDA tensor it
+  launches the CUDA kernel, on a CPU tensor it runs the kernel's twin
+  (``kernels/wkv6/ref.py``).  w reaches it in f32 whatever the compute
+  dtype, as ``_decay`` returns it;
+- training: the reference's ``wkv_scan`` (its ``wkv_impl="xla"``), a
+  loop over time in f32 in plain torch.  The kernel has no backward, nor
+  has the reference's, so ``wkv_impl="wkv6_kernel"`` raises there.
+
+Decode carries (shift_t, shift_c, S) and stays plain torch, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from repro_torch.models import module as m
 
 DECAY_RANK = 64
 
-WKV_IMPLS = ("xla", "wkv6_kernel")   # both name the WKV6 kernel path
+WKV_IMPLS = ("xla", "wkv6_kernel")   # both name the kernel in inference
 
 
 def init_time_mix(gen, cfg: ModelConfig, device=None):
@@ -92,9 +99,24 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
+def wkv_scan(r, k, v, w, u, S0):
+    """The reference's WKV recurrence, differentiable.  r, k, v, w:
+    (B, S, H, D); u: (H, D); S0: (B, H, D, D).  Returns (y (B, S, H, D)
+    f32, S_final), a loop over t in f32 as the reference's ``lax.scan``."""
+    rf, kf, vf, wf = (a.to(torch.float32) for a in (r, k, v, w))
+    S = S0
+    ys = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B,H,D,D)
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t],
+                               S + u[..., :, None] * kv))
+        S = wf[:, t, :, :, None] * S + kv
+    return torch.stack(ys, dim=1), S
+
+
 def time_mix_full(params, cfg: ModelConfig, x: torch.Tensor,
                   impl: str = "xla") -> torch.Tensor:
-    """Full-sequence time-mix through the WKV6 kernel.  x: (B, S, d)."""
+    """Full-sequence time-mix.  x: (B, S, d)."""
     if impl not in WKV_IMPLS:
         raise ValueError(f"wkv_impl must be one of {WKV_IMPLS}, got "
                          f"{impl!r}")
@@ -104,7 +126,15 @@ def time_mix_full(params, cfg: ModelConfig, x: torch.Tensor,
     r, k, v, w, g = _wkv_inputs(params, cfg, x, _shift(x))
     rh, kh, vh, wh = (a.reshape(B, S, H, D) for a in (r, k, v, w))
     u = params["bonus_u"].reshape(H, D)
-    y, _ = wkv_ops.wkv6(rh, kh, vh, wh, u, None)
+    if not m.records_grad(rh, kh, vh, wh, u):
+        y, _ = wkv_ops.wkv6(rh, kh, vh, wh, u, None)
+    elif impl == "wkv6_kernel":
+        raise NotImplementedError(
+            "wkv_impl='wkv6_kernel' under autograd: the WKV6 kernel has no "
+            "backward, nor has the reference's; train with wkv_impl='xla'")
+    else:
+        S0 = torch.zeros((B, H, D, D), dtype=torch.float32, device=x.device)
+        y, _ = wkv_scan(rh, kh, vh, wh, u, S0)
     y = y.reshape(B, S, d).to(x.dtype)
     y = _group_norm(y, params["ln_scale"], H)
     return (y * L.silu(g)) @ params["w_o"].to(x.dtype)

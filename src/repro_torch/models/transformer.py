@@ -13,18 +13,33 @@ Inputs: ``tokens`` (B, S); audio with a stub frontend takes precomputed
 frame embeddings ``embeds`` (B, S, d) and has no embedding table; vlm
 writes ``patch_embeds`` (B, P, d) over the first P positions and takes
 M-RoPE ``positions`` (B, 3, S).  ``opts`` takes the reference's keys:
-  impl          'xla' | 'flash'       (both: the flash-attention kernel)
-  wkv_impl      'xla' | 'wkv6_kernel' (both: the WKV6 kernel)
+  impl          'xla' | 'flash'       (inference: both the flash-attention
+                kernel; under autograd 'xla' is the reference's einsum path
+                and 'flash' raises, the kernel having no backward)
+  wkv_impl      'xla' | 'wkv6_kernel' (likewise: the WKV6 kernel, or under
+                autograd ``wkv_scan`` for 'xla')
   moe_dispatch  'dense' selects moe_dense, anything else the scatter path
-  remat         'none' only (training is not ported yet)
+  remat         'none' | 'full' (each layer recomputed in the backward) |
+                'dots' (each layer recomputed but for its weight products,
+                the matmuls with no batch dims: ``aten.mm``/``addmm``
+                outputs are kept, the attention ``bmm``s recomputed; the
+                counterpart of ``dots_with_no_batch_dims_saveable``)
   act_sharding, unroll_layers: accepted, no effect (one device, eager)
+  fused_head    accepted and ignored here, as the reference's forward does:
+                ``training.step.loss_fn`` reads it
   return_hidden forward_full returns the final-normed hidden states
+
+Remat changes no value: the recomputed ops are the same ops on the same
+inputs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -40,16 +55,38 @@ DEFAULT_OPTS = {"impl": "xla", "wkv_impl": "xla",
                 "moe_dispatch": "scatter", "remat": "none",
                 "act_sharding": None, "unroll_layers": False}
 
+REMATS = ("none", "full", "dots")
+
+
 def _opts(opts: Optional[dict]) -> dict:
-    unknown = set(opts or {}) - set(DEFAULT_OPTS) - {"return_hidden"}
+    unknown = (set(opts or {}) - set(DEFAULT_OPTS)
+               - {"return_hidden", "fused_head"})
     if unknown:
         raise ValueError(f"unknown opts {sorted(unknown)}")
     opts = {**DEFAULT_OPTS, **(opts or {})}
-    if opts["remat"] != "none":
-        raise NotImplementedError(
-            f"remat={opts['remat']!r}: rematerialisation is for training, "
-            "which is not ported yet (ROADMAP.md, queue 1)")
+    if opts["remat"] not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got "
+                         f"{opts['remat']!r}")
     return opts
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat='dots': keep the weight products, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(remat: str):
+    """The layer body under the remat policy."""
+    if remat == "none":
+        return _layer_full
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+    return functools.partial(checkpoint, _layer_full, use_reentrant=False,
+                             **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -175,9 +212,10 @@ def forward_full(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
     if positions is None:
         positions = text_positions(B, S, mrope=bool(cfg.mrope_sections),
                                    device=x.device)
+    body = _remat(opts["remat"])
     auxs = []
     for i in range(cfg.num_layers):
-        x, aux = _layer_full(layer(params, i), cfg, x, positions, opts)
+        x, aux = body(layer(params, i), cfg, x, positions, opts)
         auxs.append(aux)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.sum(torch.stack(auxs))

@@ -1,9 +1,13 @@
-"""Cross-entropy and accuracy (``repro/training/loss.py``)."""
+"""Cross-entropy, the fused-head cross-entropy and accuracy
+(``repro/training/loss.py``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.layers import lm_logits
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -18,6 +22,41 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         w = mask.float()
         return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
     return torch.mean(nll)
+
+
+def fused_head_cross_entropy(head_params, embed_params, cfg, hidden: torch.Tensor,
+                             labels: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None,
+                             chunk: int = 512) -> torch.Tensor:
+    """CE without materializing the full (B, S, V) logits tensor.
+
+    The head projection and the logsumexp run per chunk of ``chunk``
+    positions, each recomputed in the backward (``checkpoint``), so the
+    live logits are (B, chunk, V).  The chunks' sums add in order, as the
+    reference's ``lax.scan``."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"fused_head_cross_entropy: S={S} is not a multiple "
+                         f"of chunk={chunk}")
+
+    def chunk_loss(h, y, w):
+        logits = lm_logits(head_params, embed_params, cfg, h).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y.long()[..., None])[..., 0]
+        return torch.sum((logz - gold) * w), torch.sum(w)
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        w = (mask[:, sl].to(torch.float32) if mask is not None
+             else torch.ones((B, chunk), dtype=torch.float32,
+                             device=hidden.device))
+        s, c = checkpoint(chunk_loss, hidden[:, sl], labels[:, sl], w,
+                          use_reentrant=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,

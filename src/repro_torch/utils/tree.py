@@ -12,11 +12,21 @@ from typing import Any, Callable, Iterator, List
 import torch
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """Apply ``fn`` leafwise over trees of the same structure."""
+    """Apply ``fn`` leafwise over trees of the same structure.  A
+    ``NamedTuple`` (a ``TrainState``) is walked field by field, in order,
+    and a None field stays None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(
+            None if t is None else tree_map(fn, t, *(r[i] for r in rest))
+            for i, t in enumerate(tree)))
     return fn(tree, *rest)
 
 
@@ -36,6 +46,8 @@ def tree_unflatten(like: Any, leaves: Iterator) -> Any:
     """The structure of ``like`` filled from the iterator ``leaves``."""
     if isinstance(like, dict):
         return {k: tree_unflatten(like[k], leaves) for k in sorted(like)}
+    if _is_namedtuple(like):
+        return type(like)(*(tree_unflatten(t, leaves) for t in like))
     if isinstance(like, (list, tuple)):
         return type(like)(tree_unflatten(t, leaves) for t in like)
     if like is None:

@@ -28,6 +28,11 @@ twins (logits, and greedy tokens at f32) for every family.  The flash kernels, W
 same bits on every run; WKV6 runs at every head dim it is built for and
 flash attention past 65 535 rows of B·H.
 
+Training on the card goes through the einsum paths: the zoo's kernels
+refuse CUDA tensors that require a gradient, a reduced train step
+launches neither and matches the CPU (loss 1e-5 relative, params 1e-4 of
+the largest magnitude).
+
 The hygiene tests run everywhere: the port imports neither JAX, nor the
 JAX package, nor ``msgpack`` (absent on the card's machine), and an entry
 point given no device refuses to run without a card.
@@ -1099,6 +1104,75 @@ def test_family_forward_on_card_matches_cpu(cuda, name, dtype):
         assert torch.equal(t_gpu.cpu(), t_cpu)
 
 
+@pytest.mark.cuda
+def test_zoo_kernels_refuse_autograd_on_the_card(cuda):
+    """No gradient is cut silently on the card either: both wrappers raise
+    on CUDA tensors that require a gradient, and launch nothing."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.wkv6 import kernel as wk
+    g = torch.Generator(cuda).manual_seed(0)
+    q, k, v = (torch.randn(4, 64, 64, device=cuda, generator=g)
+               for _ in range(3))
+    w = torch.rand(4, 64, 64, device=cuda, generator=g)
+    u = torch.randn(4, 64, device=cuda, generator=g)
+    fa.reset_launches()
+    wk.reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_bh(q.requires_grad_(), k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        wk.wkv6_bh(q, k, v, w, u)
+    assert fa.LAUNCHES["flash_attention_bh"] == wk.LAUNCHES["wkv6_bh"] == 0
+    with torch.no_grad():
+        fa.flash_attention_bh(q, k, v)
+        wk.wkv6_bh(q, k, v, w, u)
+    assert fa.LAUNCHES["flash_attention_bh"] == wk.LAUNCHES["wkv6_bh"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama", "rwkv6"])
+def test_train_step_on_card_matches_cpu_and_launches_no_kernel(cuda, name):
+    """One AdamW step (clip 1.0) at f32 from one set of params: the card
+    against the CPU, loss within 1e-5 relative and params within 1e-4 of
+    the largest magnitude (the CPU tests' bounds against JAX); the step
+    launches no kernel, and a no_grad prefill after it one a layer."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import inputs
+    from repro_torch.optim import adamw, cosine
+    from repro_torch.training import (create_train_state, make_prefill_step,
+                                      make_train_step)
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    m_cpu = _zoo_model(name, "float32", "cpu")
+    m_gpu = _zoo_model(name, "float32", cuda)
+    p_cpu = m_cpu.init(torch.Generator().manual_seed(0))
+    batch = inputs.materialize(inputs.train_specs(m_cpu.cfg, 2, 64),
+                               m_cpu.cfg, seed=1, device="cpu")
+    out = {}
+    for m, dev in ((m_cpu, "cpu"), (m_gpu, cuda)):
+        opt = adamw(cosine(3e-4, 1, 4), weight_decay=0.1)
+        state = create_train_state(tree_map(lambda t: t.to(dev), p_cpu), opt)
+        fa.reset_launches()
+        wk.reset_launches()
+        state, met = make_train_step(m, opt, grad_clip=1.0)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        assert fa.LAUNCHES["flash_attention_bh"] == 0
+        assert wk.LAUNCHES["wkv6_bh"] == 0
+        out[str(dev)] = (float(met["loss"]), state)
+    (l_cpu, s_cpu), (l_gpu, s_gpu) = out["cpu"], out[str(cuda)]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    scale = max(float(t.abs().max()) for t in tree_leaves(s_cpu.params))
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(s_gpu.params), tree_leaves(s_cpu.params)))
+    assert err <= 1e-4 * scale, (err, scale)
+    assert int(s_gpu.step) == 1 and s_gpu.step.device.type == "cuda"
+    make_prefill_step(m_gpu)(s_gpu.params, {"tokens": batch["tokens"].to(
+        cuda)})
+    torch.cuda.synchronize()
+    layers = m_gpu.cfg.num_layers
+    assert (fa.LAUNCHES["flash_attention_bh"], wk.LAUNCHES["wkv6_bh"]) == (
+        (0, layers) if name == "rwkv6" else (layers, 0))
+
+
 # ---------------------------------------------------------------------------
 # import hygiene: runs everywhere
 # ---------------------------------------------------------------------------
@@ -1145,7 +1219,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.kernels.wkv6.kernel, repro_torch.kernels.wkv6.ops, "
             "repro_torch.serving.decode, repro_torch.training.step, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.optim, "
+            "repro_torch.training, repro_torch.launch.train, "
+            "repro_torch.core.split, repro_torch.data, repro_torch.convert, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.serve_batched, "
+            "repro_torch.examples.uav_fl_sim\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
             "assert not bad, bad\n"

@@ -261,14 +261,18 @@ def test_cnn_family_wraps_the_paper_model():
 
 
 def test_opts_outside_the_slice_raise():
+    """An impl the port does not have raises; the training opts (remat,
+    fused_head) run and leave the forward's logits as they are."""
     _, _, tm, tp = _models("llama-gqa2", "float32")
     toks = {"tokens": torch.from_numpy(_tokens(tm.cfg, s=4))}
-    with pytest.raises(NotImplementedError, match="training"):
-        tm.forward(tp, toks, {"remat": "full"})
     with pytest.raises(ValueError, match="impl"):
         tm.forward(tp, toks, {"impl": "einsum"})
     with pytest.raises(ValueError, match="unknown opts"):
-        tm.forward(tp, toks, {"fused_head": True})
+        tm.forward(tp, toks, {"no_such_opt": True})
+    want, _ = tm.forward(tp, toks)
+    for opts in ({"remat": "full"}, {"remat": "dots"}, {"fused_head": True}):
+        got, _ = tm.forward(tp, toks, opts)
+        assert torch.equal(got, want), opts
     tm.forward(tp, toks, {"act_sharding": None, "unroll_layers": True,
                           "moe_dispatch": "dense"})
 
