@@ -110,8 +110,31 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    three example twins as subprocesses (``uav_fl_sim --rounds 2``).  No
    zoo kernel may launch in any training step of the phase.  It prints
    its wall time;
-11. the card's line, the kernels' JSON line (the zoo rows with
-   ``train_launches``, phase 10's count, 0), and the result line.
+11. ranks on the card (``launch.mesh.spawn_ranks``; ranks that share the
+   card use gloo, the backend named in every line).  (a) OpportunisticSync
+   (``core.opportunistic_sync.make_opp_sync_round``) with 4 pods, one rank
+   each, on Llama-3.2-1B at full width with 4 of its 16 layers (four
+   pods' f32 state fits one card only cut in depth), bf16 compute on f32
+   params, TF32 off, sgd(1e-2), B=2 x S=512 per inner step from
+   ``make_token_stream``, e=6, b=2, outage 0.3: 3 rounds of opt, 1 of
+   async, 1 of discard from one ``channel_trace`` seed; after every round
+   each rank's params are bitwise rank 0's, the snapshot slots are reset,
+   and each pod's snapshot decisions equal the host's recomputation from
+   the trace (eq. 15 τ against the allowance, the schedule, the outage);
+   losses finite; no zoo kernel launch on any rank.  It prints ms per
+   round per rank, ``round_sync`` alone, each rank's peak memory and the
+   backend.  (b) The same rounds at the reduced size at f32 on the card
+   and on 4 CPU ranks: decisions and arrivals equal, loss within 1e-5,
+   params within 1e-4 of the largest.  (c) Phase 9's Fig. 3(b) panel over
+   2 ranks (one seed each) through ``Experiment.run(mesh=...)``: each
+   rank's launches equal the panel's, every gathered row (counts, bytes,
+   test loss and accuracy, final params) bitwise phase 9's.  (d) The
+   multipod twin (``repro_torch.examples.opportunistic_multipod --rounds
+   2``) as a subprocess.  The phase prints its wall time;
+12. the card's line, the kernels' JSON line (the zoo rows with
+   ``train_launches``, phase 10's count, and ``opp_sync_launches``, phase
+   11's, both 0; the fused-CNN rows with ``sharded_sweep_launches``, each
+   sweep rank's count), and the result line.
 
 It imports nothing of JAX.  Without a CUDA card it exits 2 and prints no
 result.
@@ -1504,17 +1527,18 @@ def check_group(group, fused_ms: float) -> dict:
 
 
 def sweep_path(fused_ms: float):
-    """Phase 9; returns the launches over the three panels and each
-    group's numbers."""
+    """Phase 9; returns the launches over the three panels, each group's
+    numbers and each panel's ``SweepResult``."""
     from repro_torch.core.sweep import compile_spec
     total = {n: 0 for n in REPLACES}
-    numbers = {}
+    numbers, results = {}, {}
     for name, ex, n_prog in sweep_panels():
         groups = compile_spec(ex.to_spec())
         reset_all_launches()
         sync()
         t0 = time.perf_counter()
         res = ex.run(engine="sweep")          # the card: no device argument
+        results[name] = res
         sync()
         wall = time.perf_counter() - t0
         got = all_launches()
@@ -1552,7 +1576,7 @@ def sweep_path(fused_ms: float):
     path = FUSED_CNN + CODEC
     if min(total[n] for n in path) <= 0:
         raise AssertionError("a kernel of the sweep path never launched")
-    return total, numbers
+    return total, numbers, results
 
 
 # ---------------------------------------------------------------------------
@@ -2567,6 +2591,355 @@ def train_path():
     return train_launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 11: ranks on the card (OpportunisticSync, the sweep over ranks)
+# ---------------------------------------------------------------------------
+
+# Llama-3.2-1B at full width (d 2048, 32 q / 8 kv, vocab 128 256, tied;
+# bf16 compute on f32 params) with OPP_LAYERS of its 16 layers: a pod's f32
+# params, grads, snapshot and the round's copies take ~10 GiB at 4 layers
+# and ~22 GiB at 16, so four pods fit on one 80 GB card only cut in depth
+OPP_PODS, OPP_LAYERS = 4, 4
+OPP_B, OPP_S = 2, 512           # per inner step and pod
+OPP_REDUCED_S = 64              # card vs CPU, reduced llama at f32
+OPP_CFG = dict(inner_steps=6, budget=2, outage_prob=0.3, rate0=1.0)
+OPP_LR = 1e-2
+OPP_SCHEMES = ("opt", "opt", "opt", "async", "discard")   # one per round
+OPP_TRACE_SEED = 7
+# card vs CPU at f32: the zoo's training bounds (summation order only)
+OPP_LOSS_RTOL, OPP_PARAM_RTOL = 1e-5, 1e-4
+SWEEP_RANKS = 2                 # the Fig. 3(b) panel's 2 seeds, one a rank
+OPP_TIMEOUT_S = 300             # bounds each collective of a rank
+# the ranks' rendezvous files and results (git-ignored)
+RANKS_DIR = os.path.join(HERE, "build", "ranks")
+
+
+def opp_trace():
+    """The phase's channel trace, drawn on the CPU as every rank draws it:
+    (rates, outages, arrived) of shape (rounds, e+1, pods)."""
+    import torch
+    from repro_torch.core.opportunistic_sync import (OppSyncConfig,
+                                                     channel_trace)
+    return channel_trace(OppSyncConfig(**OPP_CFG),
+                         torch.Generator().manual_seed(OPP_TRACE_SEED),
+                         OPP_PODS, len(OPP_SCHEMES))
+
+
+def host_decisions(rates, outages, pod: int) -> list:
+    """Alg. 2's snapshot decisions recomputed on the host in numpy f32 from
+    the trace: per round, the pod's (snapshot_step, tau_extra) at the entry
+    of each inner step, as the rank records them."""
+    from repro_torch.core.opportunistic_sync import OppSyncConfig
+    cfg = OppSyncConfig(**OPP_CFG)
+    e, per = cfg.inner_steps, cfg.schedule_period()
+    one, tiny = np.float32(cfg.payload), np.float32(1e-9)
+    out = []
+    for r in range(len(OPP_SCHEMES)):
+        snap, te, seen = -1, np.float32(cfg.tau_extra0), []
+        for t in range(e):
+            seen.append((snap, float(te)))
+            step = r * e + t + 1
+            inner = step % e
+            sched = cfg.budget > 1 and inner % per == 0 and 0 < inner < e
+            tau = one / max(np.float32(rates[r, t, pod]), tiny)
+            if sched and not bool(outages[r, t, pod]) and tau <= te:
+                snap, te = step, np.float32(te - tau)
+        out.append(seen)
+    return out
+
+
+def opp_sync_rank(rank: int, world: int, device, full: bool) -> dict:
+    """The rank body of phase 11a/b: this pod's rounds (one per entry of
+    OPP_SCHEMES, each through ``make_opp_sync_round``) on Llama-3.2-1B cut
+    to OPP_LAYERS layers (``full``) or reduced at f32, from one param tree
+    and one trace.  Returns per round the losses, the snapshot slots at
+    each step's entry, whether the pods' params are bitwise equal and the
+    slots reset, and its host-clock spans: the round, its train steps
+    (each between two synchronizes), the wait for the other pods after
+    the last step (a barrier) and the rest, which is the last
+    ``maybe_snapshot`` and ``round_sync``; then the peak memory, the
+    launches and the backend (and the params per round when reduced)."""
+    from dataclasses import replace
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.opportunistic_sync import (OppSyncConfig,
+                                                     make_opp_sync_round)
+    from repro_torch.data import make_token_stream
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.training import create_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3.2-1b")
+    cfg = cfg.replace(num_layers=OPP_LAYERS) if full else cfg.reduced()
+    seq = OPP_S if full else OPP_REDUCED_S
+    model = build_model(cfg, device)
+    gen = torch.Generator(device if full else "cpu").manual_seed(0)
+    params = model.init(gen)
+    for leaf in tree_leaves(params):      # one starting point for all pods
+        dist.broadcast(leaf, src=0)
+    opt = sgd(OPP_LR)
+    base = OppSyncConfig(**OPP_CFG)
+    state = create_train_state(params, opt, with_opt_sync=True,
+                               tau_extra0=base.tau_extra0)
+    del params
+    step, seen, marks = make_train_step(model, opt), [], []
+    e, n = base.inner_steps, len(OPP_SCHEMES)
+
+    def wait():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def recorded(st, batch):
+        seen.append((st.snapshot_step.clone(), st.tau_extra.clone()))
+        wait()
+        t = time.perf_counter()
+        out = step(st, batch)
+        wait()
+        marks.append((t, time.perf_counter()))
+        if len(marks) == e:               # every pod done with its steps
+            dist.barrier()
+            marks.append((time.perf_counter(),) * 2)
+        return out
+
+    ds = make_token_stream(world * e * OPP_B * n, seq,
+                           vocab=cfg.vocab_size, seed=0)
+    rates, outages, arrived = opp_trace()
+
+    def pod_batches(r):
+        lo = r * world * e * OPP_B
+        return {k: torch.tensor(a[lo:lo + world * e * OPP_B].reshape(
+            world, e, OPP_B, seq)[rank], device=device)
+            for k, a in (("tokens", ds.x), ("labels", ds.y))}
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    rounds = []
+    for r, scheme in enumerate(OPP_SCHEMES):
+        one_round = make_opp_sync_round(replace(base, scheme=scheme),
+                                        recorded)
+        batches = pod_batches(r)
+        seen.clear()
+        marks.clear()
+        dist.barrier()
+        wait()
+        t0 = time.perf_counter()
+        state, losses = one_round(state, batches, rates[r], outages[r],
+                                  arrived[r])
+        wait()
+        t1 = time.perf_counter()
+        same = True
+        for leaf in tree_leaves(state.params):
+            ref = leaf.clone()
+            dist.broadcast(ref, src=0)
+            same = same and torch.equal(ref, leaf)
+        rounds.append({
+            "scheme": scheme, "ms": (t1 - t0) * 1e3,
+            "steps_ms": sum(b - a for a, b in marks[:e]) * 1e3,
+            "wait_ms": (marks[e][0] - marks[e - 1][1]) * 1e3,
+            "sync_ms": (t1 - marks[e][0]) * 1e3,
+            "losses": losses.cpu(),
+            "seen": [(int(a), float(b)) for a, b in seen],
+            "bitwise_pods": same,
+            "reset": (int(state.snapshot_step) == -1
+                      and float(state.tau_extra) == base.tau_extra0),
+            "arrived": arrived[r].tolist(),
+            "params": None if full else [t.cpu() for t in
+                                         tree_leaves(state.params)]})
+    launches = all_launches()
+    return {"rounds": rounds, "launches": launches,
+            "peak_gib": gb(torch.cuda.max_memory_allocated())
+            if on_card else None,
+            "backend": dist.get_backend(), "device": str(device),
+            "n_params": sum(t.numel() for t in tree_leaves(state.params))}
+
+
+def sharded_sweep_rank(rank: int, world: int, device) -> dict:
+    """The rank body of phase 11c: phase 9's Fig. 3(b) panel through
+    ``Experiment.run`` on the sweep's group, counts set to 0 just before
+    and read just after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_sweep_mesh
+    from repro_torch.utils.tree import tree_map
+    ex = sweep_panels()[0][1]
+    group = make_sweep_mesh()
+    reset_all_launches()
+    res = ex.run(engine="sweep", mesh=group)
+    launches = all_launches()
+    for g in res.groups:
+        g.final_params = tree_map(lambda t: t.cpu(), g.final_params)
+    return {"res": res, "launches": launches,
+            "backend": dist.get_backend(group), "device": str(device)}
+
+
+def check_opp_sync(out: list, full: bool) -> None:
+    """Phase 11a's checks over every rank's result."""
+    rates, outages, _ = opp_trace()
+    tag = f"llama3.2-1b {OPP_LAYERS} of 16 layers" if full else "reduced"
+    for rank, o in enumerate(out):
+        want = host_decisions(rates.numpy(), outages.numpy(), rank)
+        for r, rd in enumerate(o["rounds"]):
+            if not rd["bitwise_pods"]:
+                raise AssertionError(f"{tag} round {r}: pod {rank}'s params "
+                                     "differ from pod 0's")
+            if not rd["reset"]:
+                raise AssertionError(f"{tag} round {r}: pod {rank}'s "
+                                     "snapshot slots were not reset")
+            if rd["seen"] != want[r]:
+                raise AssertionError(
+                    f"{tag} round {r}: pod {rank}'s decisions {rd['seen']} "
+                    f"differ from the trace's {want[r]}")
+            if not bool(np.isfinite(rd["losses"].numpy()).all()):
+                raise AssertionError(f"{tag} round {r}: pod {rank}'s losses "
+                                     f"{rd['losses']} are not finite")
+        if any(o["launches"][n] for n in ZOO):
+            raise AssertionError(f"{tag}: pod {rank} launched a zoo kernel "
+                                 f"{ {n: o['launches'][n] for n in ZOO} }")
+
+
+def opp_sync_path() -> dict:
+    """(11a) OpportunisticSync with OPP_PODS ranks on the card at full
+    width, then the same ranks at the reduced size; (11b) the reduced
+    rounds on OPP_PODS CPU ranks against the card's."""
+    from repro_torch.launch.mesh import spawn_ranks
+    card = spawn_ranks(opp_sync_rank, OPP_PODS, None, args=(True,),
+                       tmpdir=RANKS_DIR, timeout_s=OPP_TIMEOUT_S)
+    check_opp_sync(card, full=True)
+    snaps = sum(len({s[0] for s in rd["seen"] if s[0] >= 0})
+                for o in card for rd in o["rounds"])
+    span = {k: np.array([[rd[k] for rd in o["rounds"]] for o in card])
+            for k in ("ms", "steps_ms", "wait_ms", "sync_ms")}
+    share = span["sync_ms"] / span["ms"]
+    loss = np.array([[float(rd["losses"].mean()) for rd in o["rounds"]]
+                     for o in card]).mean(0)
+    for r, scheme in enumerate(OPP_SCHEMES):
+        print(f"  round {r + 1} ({scheme}), ms per rank: round "
+              f"{span['ms'][:, r].round(1).tolist()}, train steps "
+              f"{span['steps_ms'][:, r].round(1).tolist()}, wait for the "
+              f"other pods {span['wait_ms'][:, r].round(1).tolist()}, last "
+              f"maybe_snapshot + round_sync "
+              f"{span['sync_ms'][:, r].round(1).tolist()} (share of the "
+              f"round {share[:, r].round(3).tolist()}); mean inner loss "
+              f"{loss[r]:.4f}, arrived {card[0]['rounds'][r]['arrived']}")
+    print(f"  {OPP_PODS} ranks on {card[0]['device'].split(':')[0]} "
+          f"({', '.join(o['device'] for o in card)}), backend "
+          f"{card[0]['backend']}; {card[0]['n_params']} params a pod "
+          f"({gb(4 * card[0]['n_params']):.2f} GiB f32), the card "
+          f"synchronized around every train step; peak GiB per rank {[round(o['peak_gib'], 2) for o in card]}; "
+          f"pods bitwise equal after every round, slots reset, decisions "
+          f"equal the trace's ({snaps} snapshots taken), losses finite, "
+          f"zoo launches 0 on every rank")
+    print(card_line())
+    reduced = {}
+    for key, dev in (("card", None), ("cpu", "cpu")):
+        reduced[key] = spawn_ranks(opp_sync_rank, OPP_PODS, dev,
+                                   args=(False,), tmpdir=RANKS_DIR,
+                                   timeout_s=OPP_TIMEOUT_S)
+        check_opp_sync(reduced[key], full=False)
+    lerr = perr = 0.0
+    for g, c in zip(reduced["card"], reduced["cpu"]):
+        for rg, rc in zip(g["rounds"], c["rounds"]):
+            if rg["seen"] != rc["seen"] or rg["arrived"] != rc["arrived"]:
+                raise AssertionError("card and CPU decisions differ")
+            lerr = max(lerr, float(((rg["losses"] - rc["losses"]).abs()
+                                    / rc["losses"].abs()).max()))
+            scale = max(float(t.abs().max()) for t in rc["params"])
+            perr = max(perr, max(float((a - b).abs().max()) for a, b in
+                                 zip(rg["params"], rc["params"])) / scale)
+    ok = lerr <= OPP_LOSS_RTOL and perr <= OPP_PARAM_RTOL
+    print(f"  reduced f32, {len(OPP_SCHEMES)} rounds on {OPP_PODS} ranks, "
+          f"card ({reduced['card'][0]['backend']}) vs CPU "
+          f"({reduced['cpu'][0]['backend']}): decisions and arrivals equal, "
+          f"loss within {lerr:.2e} (tol {OPP_LOSS_RTOL:.0e}), params within "
+          f"{perr:.2e} of the largest (tol {OPP_PARAM_RTOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("OpportunisticSync: card and CPU disagree")
+    return {"launches": {n: sum(o["launches"][n] for o in card)
+                         for n in ZOO},
+            "round_ms": float(np.median(span["ms"])),
+            "sync_ms": float(np.median(span["sync_ms"])),
+            "sync_share": float(np.median(share))}
+
+
+def sharded_sweep_path(fig3b, per_row_ms: dict) -> list:
+    """(11c) phase 9's Fig. 3(b) panel over SWEEP_RANKS ranks on the card:
+    each rank's launches equal the panel's, every gathered row equals
+    phase 9's bit for bit.  Returns each rank's launches."""
+    import torch
+    from repro_torch.core.sweep import compile_spec
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.utils.tree import tree_leaves
+    groups = compile_spec(sweep_panels()[0][1].to_spec())
+    want = expected_sweep_launches(groups, SWEEP_ROUNDS)
+    out = spawn_ranks(sharded_sweep_rank, SWEEP_RANKS, None,
+                      tmpdir=RANKS_DIR, timeout_s=OPP_TIMEOUT_S)
+    for rank, o in enumerate(out):
+        if o["launches"] != want:
+            raise AssertionError(f"sharded sweep rank {rank}: launches "
+                                 f"{o['launches']} != expected {want}")
+        for g, w in zip(o["res"].groups, fig3b.groups):
+            same = all(np.array_equal(g.metrics[k], w.metrics[k])
+                       for k in w.metrics) and all(
+                torch.equal(a, b.cpu()) for a, b in zip(
+                    tree_leaves(g.final_params),
+                    tree_leaves(w.final_params)))
+            if not same:
+                raise AssertionError(f"sharded sweep rank {rank}: "
+                                     f"{g.label}'s rows differ from phase 9")
+    rows = {g.label: len(g.sims) * len(g.cfgs) // SWEEP_RANKS
+            for g in fig3b.groups}
+    print(f"  fig3b on {SWEEP_RANKS} ranks ({out[0]['backend']}, "
+          f"{', '.join(o['device'] for o in out)}): launches per rank as "
+          f"expected { {n: c for n, c in want.items() if c} }; every "
+          f"gathered row (counts, bytes, test loss and accuracy, final "
+          f"params) bitwise phase 9's; ms per simulated round per row, per "
+          f"rank: "
+          + ", ".join(f"{g.label} {[round(o['res'].groups[i].run_s * 1e3 / SWEEP_ROUNDS / rows[g.label], 2) for o in out]} (phase 9 {per_row_ms[g.label]:.2f})"  # noqa: E501
+                      for i, g in enumerate(fig3b.groups)))
+    return [o["launches"] for o in out]
+
+
+def run_multipod_example() -> float:
+    """(11d) the multipod twin as a subprocess on the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.opportunistic_multipod",
+         "--rounds", "2"], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=300)
+    secs = time.perf_counter() - t0
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    print(f"  examples/opportunistic_multipod --rounds 2: exit "
+          f"{proc.returncode} in {secs:.1f} s; last line: {last}")
+    if proc.returncode != 0 or "OpportunisticSync OK" not in last:
+        raise AssertionError(f"the multipod twin failed:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return secs
+
+
+def ranks_path(fig3b, per_row_ms: dict):
+    """Phase 11; returns (the zoo kernels' launches summed over the
+    OpportunisticSync ranks, which must be 0, each sweep rank's launches,
+    the OpportunisticSync numbers)."""
+    import torch
+    t0 = time.perf_counter()
+    os.makedirs(RANKS_DIR, exist_ok=True)
+    torch.cuda.empty_cache()              # phase 10 leaves its cache
+    print(f"  parent holds {gb(torch.cuda.memory_allocated()):.2f} GiB on "
+          f"the card before spawning")
+    numbers = opp_sync_path()
+    sweep_launches = sharded_sweep_path(fig3b, per_row_ms)
+    numbers["example_s"] = run_multipod_example()
+    print(f"  ranks phase wall time {time.perf_counter() - t0:.1f} s")
+    return numbers.pop("launches"), sweep_launches, numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2653,11 +3026,19 @@ def main() -> int:
 
     print("== phase 9: sweep path (paper config, 5 rounds: Fig. 3(b) "
           "panel, Fig. 3(c) budget axis, codec panel)")
-    sweep_launches, sweep_numbers = sweep_path(fused_ms)
+    sweep_launches, sweep_numbers, sweep_results = sweep_path(fused_ms)
 
     print("== phase 10: zoo training (Llama-3.2-1B, B=2 x S=2048: steps, "
           "remat, fused head, resume, card vs CPU, the example twins)")
     train_launches, train_numbers = train_path()
+
+    print(f"== phase 11: ranks on the card ({OPP_PODS} OpportunisticSync "
+          f"pods at Llama-3.2-1B full width, {OPP_LAYERS} of 16 layers; the "
+          f"Fig. 3(b) sweep over {SWEEP_RANKS} ranks; the multipod twin)")
+    opp_launches, ranks_sweep_launches, opp_numbers = ranks_path(
+        sweep_results["fig3b"],
+        {k.split("/", 1)[1]: v["per_row_ms"]
+         for k, v in sweep_numbers.items() if k.startswith("fig3b/")})
 
     rows = []
     for n in REPLACES:
@@ -2680,6 +3061,8 @@ def main() -> int:
                         if key.startswith("d80_")})
             # phase 10's training steps go through the einsum paths
             row["train_launches"] = train_launches[n]
+            # phase 11's OpportunisticSync ranks train the same way
+            row["opp_sync_launches"] = opp_launches[n]
             if n == "flash_attention_bh":
                 # one launch a layer in each family's prefill
                 row["family_launches"] = {a: f["launches"]
@@ -2687,6 +3070,9 @@ def main() -> int:
         if n in FUSED_CNN + CODEC:
             # the sweep path's three panels (15 group rounds in all)
             row["sweep_launches"] = sweep_launches[n]
+            # phase 11: the Fig. 3(b) panel over ranks, each rank's count
+            row["sharded_sweep_launches"] = [la[n]
+                                             for la in ranks_sweep_launches]
         if n in timing_bf16:
             tb = timing_bf16[n]
             row.update(bf16_launches=launches_bf16[n], bf16_ms=tb["ms"],
@@ -2724,6 +3110,13 @@ def main() -> int:
           + "; loss + grads peak GiB by remat: "
           + ", ".join(f"{k} {v:.2f}" for k, v in
                       train_numbers["remat_peak_gib"].items()))
+    print(f"opportunistic sync ({OPP_PODS} pods on one card, Llama-3.2-1B "
+          f"{OPP_LAYERS} of 16 layers, B={OPP_B} x S={OPP_S}, e="
+          f"{OPP_CFG['inner_steps']}): median {opp_numbers['round_ms']:.1f} "
+          f"ms a round per rank, its last maybe_snapshot + round_sync "
+          f"{opp_numbers['sync_ms']:.1f} ms (median share of a round "
+          f"{opp_numbers['sync_share']:.3f}); multipod twin "
+          f"{opp_numbers['example_s']:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

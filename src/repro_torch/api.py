@@ -194,8 +194,13 @@ class Experiment:
         """Run on the chosen engine, on ``device`` (``None``: the card).
 
         ``engine_kw`` passes through to the sweep engine (``timeit``,
-        ``lower_discard``, ``overlap_compile``, ``stream_factory``);
-        ``mesh`` applies to the sweep engine only."""
+        ``lower_discard``, ``overlap_compile``, ``stream_factory``).
+        ``mesh`` applies to the sweep engine only: ``None`` (one device),
+        a process group from ``launch.mesh.make_sweep_mesh`` (the
+        simulation rows split over its ranks, every rank returning the
+        whole result), or ``"auto"`` (the default group when
+        ``torch.distributed`` has more than one rank); anything else
+        raises a ``TypeError``."""
         if engine == "auto":
             engine = "sweep"
         if engine not in ENGINES:

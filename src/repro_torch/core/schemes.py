@@ -4,7 +4,8 @@ A ``Scheme`` owns the decisions every engine delegates: the probe schedule
 (``static_schedule``, ``probe_schedule``), the host selection policy
 (``selection_policy_host``), the final-upload deadline (``final_slack``)
 and the aggregation (``aggregate`` on stacked (K, ...) tensors,
-``aggregate_host`` on lists of trees).  The eight registered schemes:
+``aggregate_host`` on lists of trees, ``pod_contribution`` for one pod of
+the multi-pod round).  The eight registered schemes:
 
   ``opt``       OPT-HSFL: probes under the eq. 14 τ_extra budget; the
                 latest snapshot rescues a missed final (Alg. 2).
@@ -38,7 +39,7 @@ import torch
 from repro_torch.core.aggregation import fedavg, fedasync_merge, fedasync_weight
 from repro_torch.core.selection import schedule_users, select_users_device
 from repro_torch.core.transmission import scheduled_epochs
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_where
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +252,17 @@ class Scheme:
             return global_params
         return fedavg(arrived)
 
+    def pod_contribution(self, params, snapshot, have_snap, arrived, *,
+                         alpha: float = 0.4, a: float = 0.5):
+        """Per-pod twin of ``aggregate`` for the multi-pod round
+        (``opportunistic_sync``): this pod's payload and its weight in the
+        cross-pod mean.  ``arrived``/``have_snap`` are scalar bool tensors
+        local to the pod; returns ``(contrib, valid)`` with ``valid`` a
+        scalar f32 weight.  Base: a missed final contributes nothing
+        (discard/sync)."""
+        del snapshot, have_snap, alpha, a
+        return params, arrived.to(torch.float32)
+
     def delayed_out(self, valid, arrived) -> torch.Tensor:
         """Which users enter next round's staleness carry."""
         return torch.zeros_like(arrived)
@@ -354,6 +366,12 @@ class OptScheme(Scheme):
             contribs, snapshots, has_snap, arrived)
         return masked_mean(contrib, weights, params), rescued
 
+    def pod_contribution(self, params, snapshot, have_snap, arrived, *,
+                         alpha: float = 0.4, a: float = 0.5):
+        del alpha, a
+        contrib = tree_where(arrived, params, snapshot)
+        return contrib, (arrived | have_snap).to(torch.float32)
+
 
 @register_scheme("async")
 class AsyncScheme(Scheme):
@@ -385,6 +403,13 @@ class AsyncScheme(Scheme):
                 out = fedasync_merge(out, upd, staleness, alpha, a)
             return out
         return global_params
+
+    def pod_contribution(self, params, snapshot, have_snap, arrived, *,
+                         alpha: float = 0.4, a: float = 0.5):
+        del snapshot, have_snap
+        # the delayed update arrives anyway, one round stale
+        w = alpha * 2.0 ** (-a)
+        return params, torch.where(arrived, 1.0, w).to(torch.float32)
 
     def delayed_out(self, valid, arrived) -> torch.Tensor:
         return valid & ~arrived

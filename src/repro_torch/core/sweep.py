@@ -23,6 +23,14 @@ reproducible, but its draws are not the reference's (a test can replay
 those through ``stream_factory``).  Datasets, partitions and device FLOPS
 are the host runs' (``hsfl.build_sim_arrays``); the initial params are
 the port's ``init_cnn(seed)``, as in ``HSFLSimulation``.
+
+Over ranks (``mesh``: a process group from ``launch.mesh.make_sweep_mesh``)
+each rank runs its block of every group's simulation rows
+(``sharding.rules.sweep_rows``: contiguous blocks when the ranks divide
+the rows, else every row on every rank), with no collective inside the
+round loop; then each rank broadcasts its rows' metrics and final params
+in turn, so that every rank returns the whole ``SweepResult``.  Rows do
+not depend on their group, so the gathered result is the unsharded one.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.channel_lib import fleet_init
 from repro_torch.core.fused_round import (DeviceRoundMetrics, DeviceSimCarry,
@@ -44,7 +53,8 @@ from repro_torch.core.schemes import get_scheme
 from repro_torch.core.streams import GroupStream, torch_stream
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_cnn.ops import ForwardPolicy
-from repro_torch.utils.tree import tree_map
+from repro_torch.sharding.rules import sweep_rows
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 # fields of HSFLConfig a sweep varies per config column
 CFG_AXES = ("b", "tau_max", "bandwidth_ratio")
@@ -247,17 +257,29 @@ def _scan_rounds(round_fn: Callable, carry: DeviceSimCarry, streams,
     return carry, out
 
 
+def _stack_metrics(per_round: List[DeviceRoundMetrics]) -> torch.Tensor:
+    """The rounds' metrics as one f32 (fields, rows, rounds) tensor on the
+    device (the counts are exact in f32)."""
+    return torch.stack([torch.stack([getattr(m, f).to(torch.float32)
+                                     for m in per_round], dim=-1)
+                        for f in DeviceRoundMetrics._fields])
+
+
 def _read_metrics(per_round: List[DeviceRoundMetrics], s: int,
                   c: int) -> Dict[str, np.ndarray]:
     """The rounds' metrics in one read: each (S, C, rounds), counts int32,
     the rest f32."""
+    return _metrics_numpy(_stack_metrics(per_round), s, c)
+
+
+def _metrics_numpy(allm: torch.Tensor, s: int,
+                   c: int) -> Dict[str, np.ndarray]:
+    """``_stack_metrics``' tensor, read back: each field (S, C, rounds)."""
     fields = DeviceRoundMetrics._fields
-    allm = torch.stack([torch.stack([getattr(m, f).to(torch.float32)
-                                     for m in per_round], dim=-1)
-                        for f in fields]).cpu().numpy()
+    allm = allm.cpu().numpy()
     out = {}
     for f, a in zip(fields, allm):
-        a = a.reshape(s, c, len(per_round))
+        a = a.reshape(s, c, a.shape[-1])
         out[f] = a.astype(np.float32 if f in ("bytes_sent", "test_loss",
                                               "test_acc") else np.int32)
     return out
@@ -273,6 +295,7 @@ class GroupResult:
     run_s: float = 0.0
     label: str = ""                       # scheme (+ "+codec")
     program_id: int = 0                   # same id: the same round program
+    final_params: Any = None              # (S·C, ...) leaves on the device
 
     def sim_log(self, sim_i: int, cfg_i: int) -> SimLog:
         """The loop engine's SimLog for one (sim, config) cell."""
@@ -305,6 +328,51 @@ class SweepResult:
         return sum(len(g.sims) * len(g.cfgs) for g in self.groups)
 
 
+def _sweep_group(mesh: Any):
+    """``mesh`` as the process group a sweep splits its rows over, or None
+    for one device."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, str) and mesh == "auto":
+        if dist.is_available() and dist.is_initialized() and \
+                dist.get_world_size() > 1:
+            return dist.group.WORLD
+        return None
+    if dist.is_available() and isinstance(mesh, dist.ProcessGroup):
+        if dist.get_rank(mesh) < 0:
+            raise ValueError(f"rank {dist.get_rank()} is not in the sweep's "
+                             "process group")
+        return mesh
+    raise TypeError(
+        f"mesh takes None, 'auto' or a torch.distributed process group "
+        f"(repro_torch.launch.mesh.make_sweep_mesh); got {mesh!r}")
+
+
+def _gather_rows(group, allm: torch.Tensor, params: Any):
+    """Every rank's ``(fields, rows, rounds)`` metrics and ``(rows, ...)``
+    params, concatenated along the rows in rank order: each rank packs its
+    own into one f32 buffer and broadcasts it in turn (exact; gloo has no
+    all-gather of CUDA tensors)."""
+    leaves = tree_leaves(params)
+    mine = torch.cat([allm.reshape(-1)]
+                     + [x.to(torch.float32).reshape(-1) for x in leaves])
+    me = dist.get_rank(group)
+    blocks = []
+    for r in range(dist.get_world_size(group)):
+        buf = mine if r == me else torch.empty_like(mine)
+        dist.broadcast(buf, src=dist.get_global_rank(group, r), group=group)
+        blocks.append(buf)
+    ms, ps = [], [[] for _ in leaves]
+    for buf in blocks:
+        ms.append(buf[:allm.numel()].view(allm.shape))
+        off = allm.numel()
+        for i, x in enumerate(leaves):
+            ps[i].append(buf[off:off + x.numel()].view(x.shape).to(x.dtype))
+            off += x.numel()
+    return (torch.cat(ms, dim=1),
+            tree_unflatten(params, iter(torch.cat(p) for p in ps)))
+
+
 def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
                timeit: bool = False, lower_discard: bool = True, device=None,
                stream_factory: Callable = torch_stream,
@@ -314,20 +382,19 @@ def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
     with its S·C rows folded into the kernels' user axis, the metrics read
     once per group.
 
-    ``device=None`` is the CUDA card (``repro_torch.device``).  ``mesh``
-    takes ``None`` or ``"auto"`` (one device); the sharded sweep is not
-    ported.  ``timeit`` runs each group a second time from its streams and
-    reports that run's ``run_s``.  There is no compile step, so
-    ``compile_s`` and ``compile_overlap_s`` are 0.0, and
-    ``overlap_compile`` (the reference's background compile of the next
-    group) is taken and has no effect.
-    ``stream_factory(cfg, device)``
-    makes each simulation's stream (``cfg.seed`` is the simulation's)."""
-    if mesh not in (None, "auto"):
-        raise NotImplementedError(
-            "the port's sweep runs on one device: mesh must be None or "
-            "'auto' (the sharded sweep is ROADMAP.md queue 1 item 5, "
-            "multi-device)")
+    ``device=None`` is the CUDA card (``repro_torch.device``; a spawned
+    rank's own card).  ``mesh`` takes ``None`` (one device), a process
+    group from ``launch.mesh.make_sweep_mesh`` (each rank runs its block
+    of the simulation rows, then the rows are gathered; see the module's
+    docstring), or ``"auto"``: the default group when ``torch.distributed``
+    is initialised with more than one rank, else one device.  ``timeit``
+    runs each group a second time from its streams and reports that run's
+    ``run_s`` (this rank's).  There is no compile step, so ``compile_s``
+    and ``compile_overlap_s`` are 0.0, and ``overlap_compile`` (the
+    reference's background compile of the next group) is taken and has no
+    effect.  ``stream_factory(cfg, device)`` makes each simulation's
+    stream (``cfg.seed`` is the simulation's)."""
+    group_pg = _sweep_group(mesh)
     device = resolve_device(device)
     rounds = spec.base.rounds
     t_all = time.time()
@@ -340,27 +407,37 @@ def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
             programs[key] = (build_device_round(**_group_build_kwargs(group)),
                              len(programs))
         fn, pid = programs[key]
-        if group.sims not in sims_data:
-            sims_data[group.sims] = _sim_tensors(_stack_sims(group), device)
-        data = sims_data[group.sims]
+        n_sims = len(group.sims)
+        lo, hi = (0, n_sims) if group_pg is None else sweep_rows(
+            n_sims, dist.get_world_size(group_pg), dist.get_rank(group_pg))
+        block = replace(group, sims=group.sims[lo:hi])
+        if block.sims not in sims_data:
+            sims_data[block.sims] = _sim_tensors(_stack_sims(block), device)
+        data = sims_data[block.sims]
         for _ in range(2 if timeit else 1):
-            carry, streams, cfg = _group_inputs(group, data, device,
+            carry, streams, cfg = _group_inputs(block, data, device,
                                                 stream_factory)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            _, per_round = _scan_rounds(fn, carry, streams, data, cfg,
-                                        rounds)
-            metrics = _read_metrics(per_round, len(group.sims),
-                                    len(group.cfgs))
+            carry, per_round = _scan_rounds(fn, carry, streams, data, cfg,
+                                            rounds)
+            allm = _stack_metrics(per_round)
+            metrics = _metrics_numpy(allm, hi - lo, len(group.cfgs))
             run_s = time.perf_counter() - t0
+        params = carry.params
+        if hi - lo < n_sims:
+            allm, params = _gather_rows(group_pg, allm, params)
+            metrics = _metrics_numpy(allm, n_sims, len(group.cfgs))
         out.append(GroupResult(
             scheme=group.scheme, sims=group.sims, cfgs=group.cfgs,
-            metrics=metrics, compile_s=0.0, run_s=round(run_s, 3),
-            label=group.label or group.scheme, program_id=pid))
-        if verbose:
-            accs = metrics["test_acc"][..., -1]
-            print(f"[sweep/{out[-1].label}] sims={len(group.sims)} "
+            metrics=metrics,
+            compile_s=0.0, run_s=round(run_s, 3),
+            label=group.label or group.scheme, program_id=pid,
+            final_params=params))
+        if verbose and (group_pg is None or dist.get_rank(group_pg) == 0):
+            accs = out[-1].metrics["test_acc"][..., -1]
+            print(f"[sweep/{out[-1].label}] sims={n_sims} "
                   f"cfgs={len(group.cfgs)} rounds={rounds} "
                   f"run={out[-1].run_s:.2f}s final_acc={accs.mean():.4f}")
     return SweepResult(groups=out, rounds=rounds,

@@ -20,3 +20,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def rank_device(kind: str, rank: int) -> torch.device:
+    """The device of global rank ``rank`` in a world of ``kind`` ranks:
+    ``cuda:(rank % torch.cuda.device_count())`` on the card (ranks share
+    cards round robin), the CPU for ``"cpu"``."""
+    if kind == "cpu":
+        return torch.device("cpu")
+    if kind != "cuda":
+        raise ValueError(f"ranks run on 'cuda' or 'cpu', not {kind!r}")
+    resolve_device("cuda")
+    return torch.device("cuda", rank % torch.cuda.device_count())

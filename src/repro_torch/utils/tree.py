@@ -60,5 +60,11 @@ def tree_lerp(a: Any, b: Any, w) -> Any:
     return tree_map(lambda x, y: (1.0 - w) * x + w * y, a, b)
 
 
+def tree_where(pred: torch.Tensor, a: Any, b: Any) -> Any:
+    """Select whole trees by a scalar bool tensor, leafwise ``torch.where``
+    (no host read of ``pred``)."""
+    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
 def tree_clone(tree: Any) -> Any:
     return tree_map(torch.clone, tree)

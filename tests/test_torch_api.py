@@ -152,7 +152,7 @@ def test_facade_rejects_bad_requests():
         frozen.with_scheme("deadline", b=2.0)
     with pytest.raises(ValueError, match="from_spec"):
         frozen.with_seeds(0, 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(TypeError, match="make_sweep_mesh"):
         ex.run(engine="sweep", mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -43,6 +43,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1174,6 +1175,119 @@ def test_train_step_on_card_matches_cpu_and_launches_no_kernel(cuda, name):
 
 
 # ---------------------------------------------------------------------------
+# ranks on the card: OpportunisticSync and the sweep (gloo: they share it)
+# ---------------------------------------------------------------------------
+
+OPP_E = 4
+
+
+def _opp_rank(rank, world, device, rounds):
+    """``rounds`` OpportunisticSync rounds of a reduced llama at f32 (params
+    from a CPU generator, the trace from seed 3, in which pod 1 snapshots
+    in both rounds and is rescued in the first): per round the losses,
+    the snapshot slots at each step's entry and the params; and whether a
+    state spanning two devices is refused."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.opportunistic_sync import (OppSyncConfig,
+                                                     channel_trace,
+                                                     make_opp_sync_round)
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.training import create_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+    cfg = OppSyncConfig(inner_steps=OPP_E, budget=2, outage_prob=0.5)
+    model = build_model(get_config("llama3.2-1b").reduced(), device)
+    opt = sgd(1e-2)
+    state = create_train_state(
+        model.init(torch.Generator().manual_seed(0)), opt,
+        with_opt_sync=True, tau_extra0=cfg.tau_extra0)
+    step, seen = make_train_step(model, opt), []
+
+    def recorded(st, batch):
+        seen.append((int(st.snapshot_step), float(st.tau_extra)))
+        return step(st, batch)
+    one_round = make_opp_sync_round(cfg, recorded)
+    rates, outages, arrived = channel_trace(
+        cfg, torch.Generator().manual_seed(3), world, rounds)
+    gen = torch.Generator().manual_seed(2)
+    out = []
+    for r in range(rounds):
+        toks = torch.randint(0, 512, (world, OPP_E, 2, 16), generator=gen)
+        seen.clear()
+        state, losses = one_round(
+            state, {"tokens": toks[rank].to(device),
+                    "labels": toks.roll(1, -1)[rank].to(device)},
+            rates[r], outages[r], arrived[r])
+        same = True
+        for leaf in tree_leaves(state.params):
+            ref = leaf.clone()
+            dist.broadcast(ref, src=0)
+            same = same and torch.equal(ref, leaf)
+        out.append((losses.cpu(), list(seen), same,
+                    [t.cpu() for t in tree_leaves(state.params)]))
+    refused = ""
+    if device.type == "cuda":
+        mixed = state._replace(snapshot_step=state.snapshot_step.cpu())
+        try:
+            one_round(mixed, {}, rates[0], outages[0], arrived[0])
+        except ValueError as err:
+            refused = str(err)
+    return out, refused
+
+
+@pytest.mark.cuda
+def test_opp_sync_ranks_on_the_card_match_the_cpu(cuda, tmp_path):
+    """Two ranks share the card through gloo (CUDA tensors, collectives
+    through the host): the pods end every round bitwise equal, and the
+    card matches two CPU ranks (decisions exact, loss 1e-5 relative,
+    params 1e-4 of the largest); a state spanning two devices is
+    refused."""
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    assert backend_for(2, torch.cuda.device_count(), "cuda") == (
+        "gloo" if torch.cuda.device_count() < 2 else "nccl")
+    card = spawn_ranks(_opp_rank, 2, None, args=(2,), tmpdir=str(tmp_path))
+    cpu = spawn_ranks(_opp_rank, 2, "cpu", args=(2,), tmpdir=str(tmp_path))
+    assert any(seen[0] >= 0 for _, sg, _, _ in card[1][0] for seen in sg)
+    for rank in range(2):
+        (got, refused), (want, _) = card[rank], cpu[rank]
+        assert "spans devices" in refused
+        for (lg, sg, eq, pg), (lc, sc, _, pc) in zip(got, want):
+            assert eq and sg == sc
+            assert torch.all((lg - lc).abs() <= 1e-5 * lc.abs())
+            scale = max(float(t.abs().max()) for t in pc)
+            assert max(float((a - b).abs().max())
+                       for a, b in zip(pg, pc)) <= 1e-4 * scale
+
+
+def _card_sweep_rank(rank, world, device):
+    from repro_torch.core import sweep
+    from repro_torch.core.hsfl import HSFLConfig
+    from repro_torch.launch.mesh import make_sweep_mesh
+    spec = sweep.SweepSpec(
+        base=HSFLConfig(rounds=2, n_uavs=8, k_select=4, n_train=400,
+                        n_test=100, steps_per_epoch=2, local_epochs=4),
+        seeds=(0, 1), schemes=(("opt", {"b": 2.0}), ("async", {"b": 1.0})))
+    sharded = sweep._run_sweep(spec, mesh=make_sweep_mesh(), device=device)
+    alone = sweep._run_sweep(spec, mesh=None, device=device)
+    return sharded, alone
+
+
+@pytest.mark.cuda
+def test_sweep_over_two_ranks_on_the_card_is_bitwise_unsharded(cuda,
+                                                                tmp_path):
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.utils.tree import tree_leaves
+    for sharded, alone in spawn_ranks(_card_sweep_rank, 2, None,
+                                      tmpdir=str(tmp_path)):
+        for g, w in zip(sharded.groups, alone.groups):
+            for k in w.metrics:
+                assert np.array_equal(g.metrics[k], w.metrics[k]), k
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(g.final_params), tree_leaves(w.final_params)))
+
+
+# ---------------------------------------------------------------------------
 # import hygiene: runs everywhere
 # ---------------------------------------------------------------------------
 
@@ -1200,7 +1314,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     walked = {p.relative_to(ROOT / "src" / "repro_torch").parts[0]
               for p in _port_files()[:-1]}
     assert {"checkpoint", "configs", "core", "kernels", "launch", "models",
-            "serving", "training"} <= walked
+            "serving", "sharding", "training"} <= walked
     assert len(_port_files()) > 30
 
 
@@ -1224,7 +1338,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.split, repro_torch.data, repro_torch.convert, "
             "repro_torch.examples.quickstart, "
             "repro_torch.examples.serve_batched, "
-            "repro_torch.examples.uav_fl_sim\n"
+            "repro_torch.examples.uav_fl_sim, "
+            "repro_torch.core.opportunistic_sync, repro_torch.launch.mesh, "
+            "repro_torch.sharding.rules, "
+            "repro_torch.examples.opportunistic_multipod\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
             "assert not bad, bad\n"
