@@ -72,7 +72,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    dispatch); (d) ``generate`` (B=4, prompt 64, 32 new, greedy) for the
    decoders, and ``launch/serve.py`` on hymba-1.5b; (e) card vs CPU at the
    reduced sizes: f32 1e-4, bf16 3% Frobenius, greedy tokens equal at
-   f32.  The phase prints its wall time;
+   f32;
 9. the sweep path (``Experiment(...).run(engine="sweep")``) at the paper's
    configuration with the rounds cut to 5: (a) a Fig. 3(b) panel (opt
    b=2, async b=1, discard b=1, seeds 0 and 1: 2 programs), (b) the Fig.
@@ -108,8 +108,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    family of ``ARCH_IDS`` reduced at f32: one AdamW step on the card
    against the CPU (loss 1e-5, params 1e-4 of the largest); (e) the
    three example twins as subprocesses (``uav_fl_sim --rounds 2``).  No
-   zoo kernel may launch in any training step of the phase.  It prints
-   its wall time;
+   zoo kernel may launch in any training step of the phase;
 11. ranks on the card (``launch.mesh.spawn_ranks``; ranks that share the
    card use gloo, the backend named in every line).  (a) OpportunisticSync
    (``core.opportunistic_sync.make_opp_sync_round``) with 4 pods, one rank
@@ -130,11 +129,33 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    rank's launches equal the panel's, every gathered row (counts, bytes,
    test loss and accuracy, final params) bitwise phase 9's.  (d) The
    multipod twin (``repro_torch.examples.opportunistic_multipod --rounds
-   2``) as a subprocess.  The phase prints its wall time;
-12. the card's line, the kernels' JSON line (the zoo rows with
+   2``) as a subprocess;
+12. the dry run (``repro_torch.launch.dryrun``).  (a) ``run_one`` for
+   Llama-3.2-1B x train_4k, prefill_32k and decode_32k, with calibration,
+   on the 16 x 16 and 2 x 16 x 16 meshes of fake 256- and 512-rank worlds
+   (fake CUDA tensors, each program in a spawned process, six at once):
+   its seconds, bytes per device against the card's memory, the three
+   roofline terms at the H100 datasheet's rates, the dominant one and the
+   useful ratio; the calibrated FLOPs must equal the full program's, and
+   no process may allocate card memory; hubert-xlarge x long_500k is a
+   documented skip.  (b) Phase 10's Llama-3.2-1B step (B=2 x 2048, AdamW,
+   clip 1.0, remat none) predicted on a fake one-rank world's (1, 1)
+   mesh, then run once on the card under the same counter: FLOPs equal,
+   the predicted peak within 0.8-1.25x of ``max_memory_allocated`` (less
+   what the card held before beyond the step's arguments); the step's ms
+   against the roofline's largest term;
+13. the card's line, the kernels' JSON line (the zoo rows with
    ``train_launches``, phase 10's count, and ``opp_sync_launches``, phase
    11's, both 0; the fused-CNN rows with ``sharded_sweep_launches``, each
-   sweep rank's count), and the result line.
+   sweep rank's count), every phase's wall time and the script's total,
+   and the result line.
+
+Every phase prints its wall time when it ends.  Cut in depth or
+repetition to keep the script within half its 1200 s limit: 8c's
+kernel-vs-cache loops run the first ``CACHE_LAYERS`` layers of each model
+at full width (granite's bf16 loop at full depth), hymba-1.5b's prefill is timed once
+and its launcher run feeds 16 prompt and 8 new tokens, and phase 11 runs
+one round per scheme.
 
 It imports nothing of JAX.  Without a CUDA card it exits 2 and prints no
 result.
@@ -301,29 +322,47 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def _self_device_us(ev) -> float:
-    return float(getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0)))
+    return float(ev.self_device_time_total)
+
+
+class DeviceEvent:
+    """One kernel's (or copy's) device records in a profile, summed."""
+
+    def __init__(self, key: str):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
 
 
 def _device_events(prof) -> list:
-    """A profile's events on the device (kernels, copies), by name.  A host
-    op (``aten::mm``) carries the device time of the kernels it launched
-    as its own, so counting host events too would count those kernels
-    twice.  The profiler's own buffer bookkeeping is left out."""
+    """A profile's events on the device (kernels, copies), summed by name
+    from the profiler's raw records (``kineto_results``).  Its
+    ``key_averages`` would build a Python event for every record, device
+    and host: for hymba's prefill (~130 000 launches) that took about 100
+    s on the H100 machine's host, for the same sums.  The host ops are
+    left out (``aten::mm`` carries the device time of the kernels it
+    launched as its own, so counting it too would count those kernels
+    twice), and so is the profiler's own buffer bookkeeping."""
     from torch.autograd import DeviceType
-    return [ev for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and not ev.key.startswith("Activity Buffer")]
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.is_hidden_event():
+            continue
+        name = ev.name()
+        if name.startswith("Activity Buffer"):
+            continue
+        agg = out.setdefault(name, DeviceEvent(name))
+        agg.count += 1
+        agg.self_device_time_total += ev.duration_ns() / 1e3
+    return list(out.values())
 
 
-def _device_us(prof) -> float:
-    """Summed device time (us) of a profile's kernels and copies."""
-    return sum(_self_device_us(ev) for ev in _device_events(prof))
+def _device_us(events) -> float:
+    """Summed device time (us) of a profile's kernels and copies (its
+    ``_device_events``)."""
+    return sum(_self_device_us(ev) for ev in events)
 
 
-def print_top_kernels(prof, top: int) -> None:
-    for ev in sorted(_device_events(prof), key=_self_device_us,
-                     reverse=True)[:top]:
+def print_top_kernels(events, top: int) -> None:
+    for ev in sorted(events, key=_self_device_us, reverse=True)[:top]:
         print(f"    {_self_device_us(ev) / 1e3:8.3f} ms  x{ev.count:5d}  "
               f"{ev.key[:70]}")
 
@@ -1120,7 +1159,8 @@ def device_busy_share(**kw):
         sim.evaluate()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = _device_us(prof)
+    events = _device_events(prof)
+    dev_us = _device_us(events)
     if dev_us <= 0:
         print("  profiler: no device time recorded (busy share not measured)")
         return None
@@ -1129,7 +1169,7 @@ def device_busy_share(**kw):
           f"{wall * 1e3:.1f} ms, "
           f"device busy {dev_us / 1e3:.2f} ms -> busy share {share:.3f}, "
           f"idle share {1 - share:.3f}")
-    print_top_kernels(prof, 12)
+    print_top_kernels(events, 12)
     return share
 
 
@@ -1233,7 +1273,8 @@ def serving_busy_share():
         server.step()
         sync()
         wall = time.perf_counter() - t0
-    dev_us = _device_us(prof)
+    events = _device_events(prof)
+    dev_us = _device_us(events)
     if dev_us <= 0:
         print("  profiler: no device time recorded (busy share not measured)")
         return wall_plain * 1e3, None
@@ -1242,7 +1283,7 @@ def serving_busy_share():
           f"the profiler: wall {wall * 1e3:.1f} ms, device busy "
           f"{dev_us / 1e3:.2f} ms -> busy share {share:.3f}, idle share "
           f"{1 - share:.3f}")
-    print_top_kernels(prof, 10)
+    print_top_kernels(events, 10)
     return wall_plain * 1e3, share
 
 
@@ -1446,9 +1487,10 @@ def sweep_busy_share(group):
         fn(carry, 2, streams, data, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = _device_us(prof)
+    events = _device_events(prof)
+    dev_us = _device_us(events)
     share = dev_us / 1e6 / wall if dev_us > 0 else None
-    return wall * 1e3, dev_us / 1e3, share, prof
+    return wall * 1e3, dev_us / 1e3, share, events
 
 
 def _same_tree(a, b) -> bool:
@@ -1508,7 +1550,7 @@ def check_group(group, fused_ms: float) -> dict:
                              f"{diff} (tol {tol}), accuracy by {dacc}")
     rows = len(group.sims) * c
     per_row = ms / SWEEP_ROUNDS / rows
-    wall, dev_ms, share, prof = sweep_busy_share(group)
+    wall, dev_ms, share, events = sweep_busy_share(group)
     acc = m1["test_acc"][..., -1]
     print(f"  {label}: {ms / SWEEP_ROUNDS:.1f} ms a round, {per_row:.2f} "
           f"ms per simulated round per (sim, config) (phase 4 fused opt "
@@ -1521,7 +1563,7 @@ def check_group(group, fused_ms: float) -> dict:
           f"{wall:.1f} ms wall, {dev_ms:.2f} ms device, busy share "
           f"{'not measured' if share is None else f'{share:.3f}'}; final "
           f"test accuracy {acc.round(4).tolist()}")
-    print_top_kernels(prof, 6)
+    print_top_kernels(events, 6)
     return {"round_ms": ms / SWEEP_ROUNDS, "per_row_ms": per_row,
             "busy": share, "rows": rows, "acc": acc}
 
@@ -1607,6 +1649,16 @@ ZOO_B, ZOO_S = 2, 2048
 HUBERT_S = 1500
 RWKV_LAYERS = 4
 CACHE_PROMPT = 256
+# the kernel-vs-cache check (8c) runs the first CACHE_LAYERS layers of each
+# model at full width: its token loop is host-bound and linear in depth.
+# Not the moe at bf16: that check measures routes that move with depth (cut
+# to 4 of 32 layers granite moved 17.6% of them and missed the 5% bound on
+# the H100), so granite keeps its full depth there; at f32 its routes do
+# not move (0 of 256 at full depth), and it takes the cut
+CACHE_LAYERS = 4
+# hymba-1.5b's prefill (~2-4 s, the mamba loop) is timed once: its median
+# of 3 equalled its first
+HYMBA_PREFILL_ITERS = 1
 # the moe, hybrid and vlm families' attention (q heads, kv heads, D)
 FAMILY_HEADS = {"granite-moe-3b-a800m": (24, 8, 64),
                 "hymba-1.5b": (25, 5, 64),
@@ -1872,21 +1924,25 @@ def profile_step(fn, label: str, top: int = 10):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = _device_us(prof)
+    t1 = time.perf_counter()
+    events = _device_events(prof)
+    dev_us = _device_us(events)
     if dev_us <= 0:
         print(f"  {label}: the profiler recorded no device time")
         return None
     print(f"  {label} under the profiler: wall {wall * 1e3:.1f} ms, device "
           f"busy {dev_us / 1e3:.2f} ms -> busy share "
-          f"{dev_us / 1e6 / wall:.3f}")
-    print_top_kernels(prof, top)
+          f"{dev_us / 1e6 / wall:.3f} (the profile read in "
+          f"{time.perf_counter() - t1:.1f} s)")
+    print_top_kernels(events, top)
     return dev_us / 1e6 / wall
 
 
 def zoo_kernel_vs_cache(model, params, label: str, prompt: int = CACHE_PROMPT,
-                        opts=None):
-    """The reference's decode-matches-forward test at full width: the
-    full-sequence forward through the kernel, its logits at the last
+                        opts=None, layers=None):
+    """The reference's decode-matches-forward test at full width on the
+    model's first layers (``layers``: per dtype, CACHE_LAYERS by default):
+    the full-sequence forward through the kernel, its logits at the last
     position, against ``serving.decode.prefill`` walking the cache (or the
     RWKV or mamba state) token by token with no kernel; at the config's
     bf16 and at f32, from the same params, text tokens only, both paths
@@ -1894,17 +1950,25 @@ def zoo_kernel_vs_cache(model, params, label: str, prompt: int = CACHE_PROMPT,
     import torch
     from repro_torch.models import build_model
     from repro_torch.serving.decode import prefill
+    from repro_torch.utils.tree import tree_map
+    layers = layers or {}
     tokens = torch.randint(0, model.cfg.vocab_size, (1, prompt),
                            generator=torch.Generator().manual_seed(2)
                            ).to(DEVICE)
+    name = label
     for dtype in ("bfloat16", "float32"):
-        m = build_model(model.cfg.replace(dtype=dtype), DEVICE)
+        n = min(layers.get(dtype, CACHE_LAYERS), model.cfg.num_layers)
+        cut = {**params, "layers": tree_map(lambda a: a[:n],
+                                            params["layers"])}
+        label = f"{name} ({n} of {model.cfg.num_layers} layers)"
+        m = build_model(model.cfg.replace(dtype=dtype, num_layers=n),
+                        DEVICE)
         (full, _), r_full = moe_routes(
-            lambda: m.forward(params, {"tokens": tokens}, opts))
+            lambda: m.forward(cut, {"tokens": tokens}, opts))
         sync()
         t0 = time.perf_counter()
         (last, _, _), r_loop = moe_routes(
-            lambda: prefill(m, params, tokens, context_len=prompt,
+            lambda: prefill(m, cut, tokens, context_len=prompt,
                             opts=opts))
         sync()
         loop_ms = (time.perf_counter() - t0) * 1e3
@@ -2090,7 +2154,17 @@ def family_path(arch: str) -> dict:
     from repro_torch.models import moe
     cfg = get_config(arch)
     seq = HUBERT_S if cfg.family == "audio" else ZOO_S
-    model, params, batch, launch, ms, busy = zoo_prefill(cfg, arch, seq=seq)
+    iters = HYMBA_PREFILL_ITERS if cfg.family == "hybrid" else 3
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    model, params, batch, launch, ms, busy = zoo_prefill(cfg, arch,
+                                                         iters=iters, seq=seq)
+    lap("prefill")
     if launch != {"flash_attention_bh": cfg.num_layers, "wkv6_bh": 0}:
         raise AssertionError(f"{arch} prefill launches {launch}: expected "
                              f"one flash attention per layer")
@@ -2113,9 +2187,12 @@ def family_path(arch: str) -> dict:
               f"dispatch's prefill {out['dense_prefill_ms']:.1f} ms")
     if cfg.family == "hybrid":
         out.update(mamba_loop_share(model, params, batch))
+    lap("8b rest")
     if not cfg.is_encoder_only:
         opts = {"moe_dispatch": "dense"} if cfg.num_experts else None
-        zoo_kernel_vs_cache(model, params, arch, opts=opts)
+        zoo_kernel_vs_cache(model, params, arch, opts=opts,
+                            layers={"bfloat16": cfg.num_layers}
+                            if cfg.num_experts else None)
         if cfg.num_experts:
             toks = torch.randint(0, cfg.vocab_size, (1, CACHE_PROMPT),
                                  generator=torch.Generator().manual_seed(2)
@@ -2125,15 +2202,21 @@ def family_path(arch: str) -> dict:
             print(f"  {arch}: the scatter path over the same "
                   f"{CACHE_PROMPT}-token prompt drops {np.mean(shares):.4f} "
                   f"of its routes (the cache path: none, B tokens a step)")
+        lap("8c")
         out["new_tok_s"] = zoo_generate(model, params, arch)
+        lap("generate")
     del model, params, batch
     torch.cuda.empty_cache()
     if cfg.family == "hybrid":
+        # the launcher's path on a hybrid; 8d's generate timed it in full
         argv = ["--device", DEVICE, "--arch", arch, "--batch", "4",
-                "--prompt-len", "64", "--max-new", "32"]
+                "--prompt-len", "16", "--max-new", "8"]
         if serve.main(argv) != 0:
             raise AssertionError("launch/serve.py failed")
         torch.cuda.empty_cache()
+        lap("launcher")
+    print(f"  {arch} seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     return out
 
 
@@ -2251,8 +2334,12 @@ def zoo_path(chk: Check):
     families = {}
     for arch in FAMILIES:
         print(f"  -- {arch} (full width and depth)")
+        t1 = time.perf_counter()
         families[arch] = family_path(arch)
+        print(f"  {arch} wall time {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     zoo_card_vs_cpu(FAMILIES)
+    print(f"  families card vs CPU wall time {time.perf_counter() - t1:.1f} s")
     print(f"  zoo phase wall time {time.perf_counter() - t0:.1f} s; "
           f"families {json.dumps(families)}")
     return timing, launches, families
@@ -2555,23 +2642,34 @@ def train_card_vs_cpu(train_launches: dict) -> None:
 
 
 def run_examples() -> dict:
-    """(10e) the three example twins as subprocesses on the card, each to
-    a zero exit; returns their wall seconds."""
+    """(10e) the three example twins as subprocesses on the card, started
+    together (each is a path check; its seconds are its own start to its
+    exit), each to a zero exit; returns their wall seconds."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    secs = {}
+    procs = {}
     for name, argv in EXAMPLES:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        procs[name] = (time.perf_counter(), subprocess.Popen(
             [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
-            cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
-        secs[name] = time.perf_counter() - t0
-        last = (proc.stdout.strip().splitlines() or [""])[-1]
-        print(f"  examples/{name} {' '.join(argv)}: exit {proc.returncode} "
-              f"in {secs[name]:.1f} s; last line: {last}")
-        if proc.returncode != 0:
-            raise AssertionError(f"example {name} failed:\n"
-                                 f"{proc.stdout[-3000:]}\n"
-                                 f"{proc.stderr[-3000:]}")
+            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    secs = {}
+    try:
+        for name, argv in EXAMPLES:
+            t0, proc = procs[name]
+            out, err = proc.communicate(timeout=300)
+            secs[name] = time.perf_counter() - t0
+            last = (out.strip().splitlines() or [""])[-1]
+            print(f"  examples/{name} {' '.join(argv)}: exit "
+                  f"{proc.returncode} in {secs[name]:.1f} s; last line: "
+                  f"{last}")
+            if proc.returncode != 0:
+                raise AssertionError(f"example {name} failed:\n"
+                                     f"{out[-3000:]}\n{err[-3000:]}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return secs
 
 
@@ -2604,7 +2702,9 @@ OPP_B, OPP_S = 2, 512           # per inner step and pod
 OPP_REDUCED_S = 64              # card vs CPU, reduced llama at f32
 OPP_CFG = dict(inner_steps=6, budget=2, outage_prob=0.3, rate0=1.0)
 OPP_LR = 1e-2
-OPP_SCHEMES = ("opt", "opt", "opt", "async", "discard")   # one per round
+# one round per scheme (cut from 3 opt rounds to keep the script within
+# half its time limit)
+OPP_SCHEMES = ("opt", "async", "discard")
 OPP_TRACE_SEED = 7
 # card vs CPU at f32: the zoo's training bounds (summation order only)
 OPP_LOSS_RTOL, OPP_PARAM_RTOL = 1e-5, 1e-4
@@ -2934,13 +3034,232 @@ def ranks_path(fig3b, per_row_ms: dict):
     print(f"  parent holds {gb(torch.cuda.memory_allocated()):.2f} GiB on "
           f"the card before spawning")
     numbers = opp_sync_path()
+    t1 = time.perf_counter()
+    print(f"  11a-b wall time {t1 - t0:.1f} s")
     sweep_launches = sharded_sweep_path(fig3b, per_row_ms)
+    print(f"  11c wall time {time.perf_counter() - t1:.1f} s")
     numbers["example_s"] = run_multipod_example()
     print(f"  ranks phase wall time {time.perf_counter() - t0:.1f} s")
     return numbers.pop("launches"), sweep_launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dry run on the card machine
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "llama3.2-1b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# 12b: the dry run's peak against the card's max_memory_allocated
+PEAK_BAND = (0.8, 1.25)
+
+
+def dryrun_record(shape: str, multi_pod: bool, device: str) -> dict:
+    """One (arch, shape, mesh) of 12a in a process of its own: a fake world
+    of 256 or 512 ranks with fake tensors on ``device``.  Adds the card
+    memory the process allocated (it must be none)."""
+    import torch
+    from repro_torch.launch.dryrun import run_one
+    if torch.device(device).type == "cuda":
+        # FakeTensorMode's own first step on a device: one real
+        # one-element tensor, freed at once, per device spelling
+        from torch._subclasses.fake_tensor import init_gpu_context
+        for dev in (torch.device("cuda"), torch.device("cuda", 0)):
+            init_gpu_context(dev)
+        torch.cuda.reset_peak_memory_stats()
+    rec = run_one(DRYRUN_ARCH, shape, multi_pod, device=device,
+                  verbose=False)
+    rec["card_bytes"] = (torch.cuda.max_memory_allocated()
+                         if torch.cuda.is_initialized() else 0)
+    return rec
+
+
+def check_dryrun_records(recs: list) -> None:
+    """(12a) The six records of ``dryrun_record``: each ok, on its world's
+    ranks, with argument bytes, calibrated FLOPs equal to the full
+    program's and no card memory; printed with their seconds, bytes per
+    device and roofline terms.  Then hubert-xlarge x long_500k, a
+    documented skip."""
+    import torch
+    from repro_torch.launch.dryrun import run_one
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    bad = [r for r in recs if r["status"] != "ok"]
+    for rec in bad:
+        print(f"  dry run {rec['arch']} x {rec['shape']} multi_pod="
+              f"{rec['multi_pod']} FAILED: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')}")
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(recs)} dry-run programs "
+                             f"failed")
+    for rec in recs:
+        want = 512 if rec["multi_pod"] else 256
+        r = rec["roofline"]
+        ok = (rec["n_chips"] == want and rec["card_bytes"] == 0
+              and rec["memory"]["argument_size_in_bytes"] > 0
+              and rec["hlo_flops_per_device"] == rec["full_depth"]["flops"])
+        print(f"  {rec['arch']} x {rec['shape']} on "
+              f"{'2x16x16' if rec['multi_pod'] else '16x16'} "
+              f"({rec['n_chips']} fake ranks, {rec['device']}): "
+              f"{rec['total_compile_s']:.1f} s; bytes per device "
+              f"{gb(rec['bytes_per_device']):.2f} GiB of the card's "
+              f"{gb(hbm):.1f} (argument {gb(rec['memory']['argument_size_in_bytes']):.2f}); "
+              f"FLOPs per device {rec['hlo_flops_per_device']:.4e} "
+              f"(calibrated = full depth: "
+              f"{rec['hlo_flops_per_device'] == rec['full_depth']['flops']}), "
+              f"HBM bytes {rec['hlo_bytes_per_device']:.4e}, collective "
+              f"bytes {rec['coll_bytes_per_device']:.4e}; roofline at the "
+              f"H100 datasheet's rates: compute {r['compute_s'] * 1e3:.3f} "
+              f"ms, memory {r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}, "
+              f"useful ratio {r['useful_ratio']:.3f}; card memory used "
+              f"{rec['card_bytes']} B {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"dry run record {rec['shape']} "
+                                 f"multi_pod={rec['multi_pod']} is wrong")
+    skip = run_one("hubert-xlarge", "long_500k", False, device=DEVICE,
+                   verbose=False)
+    if skip["status"] != "skip_documented":
+        raise AssertionError(f"hubert-xlarge x long_500k: {skip}")
+    print(f"  hubert-xlarge x long_500k: {skip['status']} (encoder-only: "
+          f"no decode)")
+
+
+def dryrun_vs_card() -> dict:
+    """(12b) The dry run against one real step: phase 10's Llama-3.2-1B
+    train step (B=TRAIN_B x S=TRAIN_S, AdamW, clip 1.0, bf16 compute on
+    f32 params, remat none) predicted on a fake one-rank world's (1, 1)
+    ``("data", "model")`` mesh, then run on the card under the same
+    counter (``utils.op_stats.ProgramStats``) with
+    ``max_memory_allocated`` after a reset: FLOPs equal, the predicted
+    peak within PEAK_BAND of the measured one."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.dryrun import (DRYRUN_LR, make_opts, measure,
+                                           roofline_terms)
+    from repro_torch.launch.mesh import PRODUCTION_AXES, fake_world, make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import create_train_state, make_train_step
+    from repro_torch.utils.op_stats import ProgramStats
+    cfg = get_config(DRYRUN_ARCH)
+    shape = InputShape("phase10", TRAIN_S, TRAIN_B, "train")
+    opts = make_opts("train", False, remat="none")
+    with fake_world(1):
+        mesh = make_mesh((1, 1), PRODUCTION_AXES, DEVICE)
+        pred = measure(cfg, shape, mesh, False, opts, DEVICE)
+    model = build_model(cfg, DEVICE)
+    opt = adamw(DRYRUN_LR)
+    state = create_train_state(
+        model.init(torch.Generator(DEVICE).manual_seed(0)), opt)
+    batch = token_batch(cfg, TRAIN_B, TRAIN_S)
+    step = make_train_step(model, opt, grad_clip=1.0)
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with ProgramStats(hold=(state, batch)) as counter:
+        new, met = step(state, batch)
+        counter.outputs((new, met))
+    sync()
+    peak = torch.cuda.max_memory_allocated()
+    real = counter.record()
+    del new, met
+    times = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        out = step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    # what the card held beyond the step's arguments before it began
+    other = base - real["memory"]["argument_size_in_bytes"]
+    measured = peak - other
+    ratio = pred["memory"]["peak_memory_in_bytes"] / measured
+    terms = roofline_terms(cfg, shape, pred["flops"], pred["bytes"],
+                           pred["coll_bytes"], 1)
+    top = max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
+    ok = (pred["flops"] == real["flops"]
+          and PEAK_BAND[0] <= ratio <= PEAK_BAND[1])
+    print(f"  {DRYRUN_ARCH} train step B={TRAIN_B} x S={TRAIN_S} (AdamW, "
+          f"clip 1.0, remat none), fake one-rank (1, 1) mesh vs the card: "
+          f"FLOPs {pred['flops']:.6e} predicted, {real['flops']:.6e} "
+          f"counted on the card (equal: {pred['flops'] == real['flops']}); "
+          f"argument bytes {gb(pred['memory']['argument_size_in_bytes']):.3f}"
+          f" GiB predicted, {gb(real['memory']['argument_size_in_bytes']):.3f}"
+          f" on the card; peak {gb(pred['memory']['peak_memory_in_bytes']):.3f}"
+          f" GiB predicted, the counter's on the card "
+          f"{gb(real['memory']['peak_memory_in_bytes']):.3f}, "
+          f"max_memory_allocated {gb(peak):.3f} less {gb(other):.3f} held "
+          f"before = {gb(measured):.3f} (predicted / measured {ratio:.4f}, "
+          f"band {PEAK_BAND}); HBM bytes predicted {pred['bytes']:.4e} "
+          f"(the card's count {real['bytes']:.4e}); the fake run "
+          f"{pred['seconds']:.1f} s {'ok' if ok else 'FAIL'}")
+    print(f"  the step on the card {times[-1]:.1f} ms (first {times[0]:.1f})"
+          f" against the roofline's largest term {top * 1e3:.3f} ms "
+          f"({max(('compute_s', 'memory_s', 'collective_s'), key=terms.get)}"
+          f"; compute {terms['compute_s'] * 1e3:.3f}, memory "
+          f"{terms['memory_s'] * 1e3:.3f} ms at the H100 datasheet's rates)"
+          f": {times[-1] / (top * 1e3):.2f}x")
+    if not ok:
+        raise AssertionError("the dry run's prediction misses the card's "
+                             "step")
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"pred": pred, "real": real, "peak": peak, "measured": measured,
+            "ratio": ratio, "ms": times[-1], "bound_ms": top * 1e3}
+
+
+def dryrun_path() -> dict:
+    """Phase 12: (12a) ``run_one`` for Llama-3.2-1B x train_4k,
+    prefill_32k and decode_32k on the 16 x 16 and 2 x 16 x 16 meshes, with
+    calibration, each in a spawned process (six at once), while this
+    process runs (12b)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    cells = [(s, mp_) for mp_ in (False, True) for s in DRYRUN_SHAPES]
+    with ProcessPoolExecutor(len(cells),
+                             mp_context=mp.get_context("spawn")) as ex:
+        futs = [ex.submit(dryrun_record, s, mp_, DEVICE)
+                for s, mp_ in cells]
+        vs = dryrun_vs_card()
+        recs = [f.result() for f in futs]
+    check_dryrun_records(recs)
+    return {"records": recs, "vs_card": vs}
+
+
+class PhaseClock:
+    """Wall time of each phase: ``start`` ends the running phase, printing
+    its seconds, and begins the next; ``summary`` is every phase's seconds
+    and the script's total since the clock was made."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.walls = {}
+        self._running = None
+
+    def start(self, n: int, title: str) -> None:
+        self.stop()
+        print(f"== phase {n}: {title}", flush=True)
+        self._running = (n, time.perf_counter())
+
+    def stop(self) -> None:
+        if self._running is None:
+            return
+        n, t = self._running
+        self.walls[n] = time.perf_counter() - t
+        self._running = None
+        print(f"  phase {n} wall time {self.walls[n]:.1f} s", flush=True)
+
+    def summary(self) -> str:
+        self.stop()
+        return ("wall time by phase (s): "
+                + ", ".join(f"{n} {w:.1f}" for n, w in self.walls.items())
+                + f"; total {time.perf_counter() - self.t0:.1f} s")
+
+
 def main() -> int:
+    clock = PhaseClock()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2949,7 +3268,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import _build
 
-    print("== phase 1: card")
+    clock.start(1, "card")
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2960,7 +3279,7 @@ def main() -> int:
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
 
-    print("== phase 2: build")
+    clock.start(2, "build")
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
@@ -2973,7 +3292,7 @@ def main() -> int:
             for entry, regs, spill in ptxas_summary(log.read_text()):
                 print(f"  ptxas {name}: {entry}: {regs} registers, {spill}")
 
-    print("== phase 3: kernels vs plain twins on the card")
+    clock.start(3, "kernels vs plain twins on the card")
     chk = Check()
     check_case(chk, "main path", 10, 10, seed=0)
     check_case(chk, "main path", 10, 10, seed=0, bf16=True)
@@ -3000,45 +3319,49 @@ def main() -> int:
     print("  quantize_blocks has no library yardstick: no single PyTorch "
           "call does the row absmax, the scale, the rounding and the clip")
 
-    print("== phase 4: fused path (paper config, every scheme, codec)")
+    clock.start(4, "fused path (paper config, every scheme, codec)")
     launches, fused_ms = main_path()
     share = device_busy_share()
 
-    print("== phase 5: policy path (paper config, bf16, single-user, "
+    clock.start(5, "policy path (paper config, bf16, single-user, "
           "im2col)")
     user_launches, launches_bf16, policy_ms = policy_path()
     launches.update({n: user_launches[n] for n in USER_CNN})
     share_bf16 = device_busy_share(precision="bf16")
 
-    print("== phase 6: serving path (paper config, codec, faults, crash)")
+    clock.start(6, "serving path (paper config, codec, faults, crash)")
     codec_launches, serve_ms = serving_path()
     launches.update(codec_launches)
     serve_round_ms, serve_share = serving_busy_share()
 
-    print("== phase 7: card vs CPU")
+    clock.start(7, "card vs CPU")
     card_vs_cpu()
 
-    print("== phase 8: zoo path (Llama-3.2-1B, RWKV6-7B cut to "
+    clock.start(8, "zoo path (Llama-3.2-1B, RWKV6-7B cut to "
           f"{RWKV_LAYERS} layers: prefill, cache path, serving)")
     zoo_timing, zoo_launches, families = zoo_path(chk)
     timing.update(zoo_timing["bf16"])
     launches.update(zoo_launches)
 
-    print("== phase 9: sweep path (paper config, 5 rounds: Fig. 3(b) "
+    clock.start(9, "sweep path (paper config, 5 rounds: Fig. 3(b) "
           "panel, Fig. 3(c) budget axis, codec panel)")
     sweep_launches, sweep_numbers, sweep_results = sweep_path(fused_ms)
 
-    print("== phase 10: zoo training (Llama-3.2-1B, B=2 x S=2048: steps, "
+    clock.start(10, "zoo training (Llama-3.2-1B, B=2 x S=2048: steps, "
           "remat, fused head, resume, card vs CPU, the example twins)")
     train_launches, train_numbers = train_path()
 
-    print(f"== phase 11: ranks on the card ({OPP_PODS} OpportunisticSync "
+    clock.start(11, f"ranks on the card ({OPP_PODS} OpportunisticSync "
           f"pods at Llama-3.2-1B full width, {OPP_LAYERS} of 16 layers; the "
           f"Fig. 3(b) sweep over {SWEEP_RANKS} ranks; the multipod twin)")
     opp_launches, ranks_sweep_launches, opp_numbers = ranks_path(
         sweep_results["fig3b"],
         {k.split("/", 1)[1]: v["per_row_ms"]
          for k, v in sweep_numbers.items() if k.startswith("fig3b/")})
+
+    clock.start(12, f"the dry run ({DRYRUN_ARCH} on fake 256- and 512-rank "
+                    f"worlds; its prediction of phase 10's step vs the card)")
+    dryrun_path()
 
     rows = []
     for n in REPLACES:
@@ -3119,6 +3442,7 @@ def main() -> int:
           f"{opp_numbers['example_s']:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": rows}))
+    print(clock.summary())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -115,7 +115,15 @@ def load(name: str) -> ctypes.CDLL:
 
 def on_cpu(*ts) -> bool:
     """True for CPU tensors, False for CUDA tensors of one device, else
-    raise: a wrapper runs its plain twin only on the CPU."""
+    raise: a wrapper runs its plain twin only on the CPU.  A tensor
+    subclass (a ``DTensor``, a fake tensor) raises too: the kernels read
+    and write through raw pointers, which such a tensor does not have (or
+    has only for its local shard)."""
+    odd = sorted({type(t).__name__ for t in ts
+                  if type(t) not in (torch.Tensor, torch.nn.Parameter)})
+    if odd:
+        raise TypeError(f"kernels take plain tensors, got {odd}: sharded "
+                        f"and traced programs take the einsum paths")
     kinds = {t.device.type for t in ts}
     if kinds == {"cpu"}:
         return True

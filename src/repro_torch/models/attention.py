@@ -6,19 +6,23 @@ bidirectional masking, sliding-window masking (dense long-context
 variant), RoPE/M-RoPE applied at write time (the KV cache stores rotated
 keys), and a ring-buffer cache for windowed decode.
 
-Full-sequence attention takes one of two paths, by whether autograd
-records (``module.records_grad``: grad mode on and q, k or v requiring a
-gradient):
+Full-sequence attention takes one of two paths (``module.einsum_path``):
 
-- inference (``torch.no_grad()``, or no input that needs a gradient):
-  the flash-attention wrapper (``repro_torch.kernels.flash_attention``)
-  for ``impl="xla"`` and ``impl="flash"`` alike.  On a CUDA tensor it
-  launches the CUDA kernel, on a CPU tensor it runs the kernel's twin;
-- training: the reference's own ``impl="xla"`` computation, ``_sdpa``
-  with ``full_mask`` up to ``CHUNK_THRESHOLD`` tokens and
-  ``_sdpa_chunked`` above it, in plain torch.  The kernel has no backward,
-  nor has the reference's (``jax.grad`` through ``impl="flash"`` fails),
-  so ``impl="flash"`` raises there.
+- inference on plain tensors (``torch.no_grad()``, or no input that needs
+  a gradient): the flash-attention wrapper
+  (``repro_torch.kernels.flash_attention``) for ``impl="xla"`` and
+  ``impl="flash"`` alike.  On a CUDA tensor it launches the CUDA kernel,
+  on a CPU tensor it runs the kernel's twin;
+- training, and any ``DTensor`` input (the dry run, sharded ranks): the
+  reference's own ``impl="xla"`` computation, ``_sdpa`` with
+  ``full_mask`` up to ``CHUNK_THRESHOLD`` tokens and ``_sdpa_chunked``
+  above it, in plain torch.  The kernel has no backward, nor has the
+  reference's (``jax.grad`` through ``impl="flash"`` fails), and it takes
+  no DTensor, so ``impl="flash"`` raises there.
+
+``act`` (the activation sharding map, ``sharding/apply.py``) constrains
+``_sdpa_chunked``'s q/k/v and the attention output where the reference
+does; it changes nothing on plain tensors.
 
 Decode attends one query over the ring-buffer cache with ``_sdpa`` in
 plain torch, as the reference does: that computation lies outside any
@@ -26,6 +30,7 @@ kernel there, and its mask is not the kernel's end-aligned causal mask.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -35,6 +40,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import module as m
 from repro_torch.models.rope import apply_rope, rope_angles
+from repro_torch.sharding import apply as sh
+from repro_torch.sharding.apply import (batch_shardable, constrain,
+                                        heads_shardable)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -69,9 +77,9 @@ def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor):
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = sh.reshape(q, B, S, cfg.num_heads, cfg.head_dim)
+    k = sh.reshape(k, B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = sh.reshape(v, B, S, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
 
 
@@ -84,13 +92,13 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
-    qg = q.reshape(B, Sq, KV, G, D)
+    qg = sh.reshape(q, B, Sq, KV, G, D)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(torch.float32)
     scores = scores * (D ** -0.5)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(B, Sq, H * D)
+    return sh.reshape(out, B, Sq, H * D)
 
 
 def full_mask(cfg: ModelConfig, seq: int, device=None) -> torch.Tensor:
@@ -105,23 +113,38 @@ def full_mask(cfg: ModelConfig, seq: int, device=None) -> torch.Tensor:
     return mask[None, None, None]
 
 
-def _sdpa_chunked(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+def _sdpa_chunked(cfg: ModelConfig, q, k, v, act=None) -> torch.Tensor:
     """Memory-efficient attention for training: a loop over query chunks
     of ``Q_CHUNK`` rows, KV repeated to (B, Sk, H, D), each chunk's body
     recomputed in the backward (``checkpoint``), so the full (S, S) score
-    tensor is never held.  q: (B, Sq, H, D) with Sq % Q_CHUNK == 0."""
+    tensor is never held.  q: (B, Sq, H, D) with Sq % Q_CHUNK == 0.  With
+    ``act``, q/k/v take the canonical layout: batch over data (and pod),
+    heads over model where they divide it."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     if KV != H:
         # the reference's jnp.repeat on the head axis, as a broadcast: its
         # backward is a sum over the group, where repeat_interleave's
         # adds with atomics on the card (not bitwise repeatable)
-        rep = lambda a: a[:, :, :, None].expand(
-            B, a.shape[1], KV, H // KV, D).reshape(B, a.shape[1], H, D)
+        rep = lambda a: sh.reshape(a[:, :, :, None].expand(
+            B, a.shape[1], KV, H // KV, D), B, a.shape[1], H, D)
         k, v = rep(k), rep(v)
+    h_ax = "M" if heads_shardable(act, H) else None
+    q = constrain(q, act, "B", None, h_ax, None)
+    k = constrain(k, act, "B", None, h_ax, None)
+    v = constrain(v, act, "B", None, h_ax, None)
     if Sq % Q_CHUNK:
         raise ValueError(f"_sdpa_chunked: Sq={Sq} is not a multiple of "
                          f"Q_CHUNK={Q_CHUNK}")
+    qkv = (0, 2)                                  # batch, heads
+    return sh.split_map(functools.partial(_chunked_local, cfg), (q, k, v),
+                        [qkv] * 3, [qkv])
+
+
+def _chunked_local(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+    """``_sdpa_chunked``'s loop on tensors of one device: q, k, v
+    (B, S, H, D) with k and v already repeated to H heads."""
+    B, Sq, H, D = q.shape
     scale = D ** -0.5
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
 
@@ -145,7 +168,8 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v) -> torch.Tensor:
 
 
 def attend_full(params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor, impl: str = "xla") -> torch.Tensor:
+                positions: torch.Tensor, impl: str = "xla",
+                act=None) -> torch.Tensor:
     """Full-sequence attention for train/prefill.  x: (B, S, d)."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl must be one of {IMPLS}, got "
@@ -156,19 +180,24 @@ def attend_full(params, cfg: ModelConfig, x: torch.Tensor,
     q = apply_rope(q, angles)
     k = apply_rope(k, angles)
     S = x.shape[1]
-    if not m.records_grad(q, k, v):
+    if not m.einsum_path(q, k, v):
         out = fa_ops.flash_attention(q, k, v, causal=cfg.causal,
                                      window=cfg.sliding_window or 0)
         out = out.reshape(*x.shape[:2], cfg.q_dim)
     elif impl == "flash":
         raise NotImplementedError(
-            "impl='flash' under autograd: the flash-attention kernel has no "
-            "backward, nor has the reference's (jax.grad through "
-            "impl='flash' fails); train with impl='xla'")
+            "impl='flash' under autograd or on DTensors: the flash-attention "
+            "kernel has no backward, nor has the reference's (jax.grad "
+            "through impl='flash' fails), and it takes no DTensor; train "
+            "and shard with impl='xla'")
     elif S > CHUNK_THRESHOLD and S % Q_CHUNK == 0:
-        out = _sdpa_chunked(cfg, q, k, v)
+        out = _sdpa_chunked(cfg, q, k, v, act)
     else:
-        out = _sdpa(cfg, q, k, v, full_mask(cfg, S, x.device))
+        # heads whole: q's and the kv heads' groups need not split alike
+        out = sh.split_map(functools.partial(_sdpa, cfg),
+                           (q, k, v, full_mask(cfg, S, x.device)),
+                           [(0, None)] * 3 + [(None, None)], [(0, None)])
+    out = constrain(out, act, "B", None, None)
     return out @ params["wo"].to(x.dtype)
 
 
@@ -192,12 +221,16 @@ def init_cache(cfg: ModelConfig, batch: int, context_len: int, dtype,
 
 
 def attend_decode(params, cfg: ModelConfig, x: torch.Tensor,
-                  cache: Dict[str, torch.Tensor], position: torch.Tensor
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  cache: Dict[str, torch.Tensor], position: torch.Tensor,
+                  act=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode.  x: (B, 1, d); position: (B,) absolute positions of
-    the new token; cache stores rotated keys.  Returns (out (B,1,d), cache')."""
+    the new token; cache stores rotated keys.  Returns (out (B,1,d), cache').
+    With ``act`` the new token's q, k and v take the batch's layout and
+    whole heads (the cache keeps its own), where GSPMD would carry them."""
     B = x.shape[0]
     q, k, v = _project_qkv(params, cfg, x)                    # S == 1
+    b = "B" if batch_shardable(act, B) else None
+    q, k, v = (constrain(t, act, b, None, None, None) for t in (q, k, v))
     pos = position[:, None]                                   # (B, 1)
     if cfg.mrope_sections:
         pos = pos[:, None].expand(B, 3, 1)

@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import module as m
+from repro_torch.sharding.apply import is_dtensor, take_rows
 
 
 # ---------------------------------------------------------------------------
@@ -73,8 +74,12 @@ def init_embedding(gen, cfg: ModelConfig, device=None):
 
 def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of the table in ``dtype`` (only the gathered rows are cast,
-    which gives the reference's cast-then-gather values)."""
-    return params["table"][tokens.long()].to(dtype)
+    which gives the reference's cast-then-gather values); a DTensor table
+    through ``sharding.apply.take_rows``."""
+    table = params["table"]
+    if is_dtensor(table):
+        return take_rows(table, tokens).to(dtype)
+    return table[tokens.long()].to(dtype)
 
 
 def init_lm_head(gen, cfg: ModelConfig, device=None):

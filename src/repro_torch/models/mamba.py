@@ -16,6 +16,7 @@ reference's order.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -23,6 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import module as m
+from repro_torch.sharding import apply as sh
 
 # time steps whose decays and inputs are formed at once in the scan: a
 # bound on its scratch (B x SCAN_CHUNK x d_inner x N f32, three buffers)
@@ -84,11 +86,11 @@ def selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     (a product, then a sum); the decays and inputs of SCAN_CHUNK steps are
     formed together, and their states contracted with C together.  In
     inference the states are written into one buffer (``out=``, in place);
-    where autograd records, which neither allows, each step makes a new
-    tensor and the chunk's states are stacked: the same two roundings a
-    step, so the two forms agree bit for bit."""
+    where autograd records, which does not allow it, and on DTensors, each
+    step makes a new tensor and the chunk's states are stacked: the same
+    two roundings a step, so the two forms agree bit for bit."""
     B_, S, di = xf.shape
-    train = m.records_grad(dt, Bm, Cm, xf, A)
+    train = m.einsum_path(dt, Bm, Cm, xf, A)
     h = torch.zeros((B_, di, A.shape[1]), dtype=torch.float32,
                     device=xf.device)
     ys = []
@@ -112,18 +114,29 @@ def selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return torch.cat(ys, dim=1)
 
 
+def _gated_scan(out_dtype, dt, Bm, Cm, xf, A, D, z):
+    """The scan, its skip term and the output gate: (B, S, di)."""
+    y = selective_scan(dt, Bm, Cm, xf, A) + xf * D
+    return y.to(out_dtype) * L.silu(z)
+
+
 def mamba_full(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence selective scan.  x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence selective scan.  x: (B, S, d) -> (B, S, d).  The conv
+    and the scan are independent along the batch and the channels: on
+    DTensors each rank runs its shards (``sharding.apply.split_map``)."""
     dt_ = x.dtype
     di = cfg.d_inner
     xz = x @ params["w_in"].to(dt_)
     xs, z = xz[..., :di], xz[..., di:]
-    xc = _causal_conv(params, xs)
+    xc = sh.split_map(lambda a, w: _causal_conv({"conv_w": w}, a),
+                      (xs, params["conv_w"]), [(0, 2), (None, 1)], [(0, 2)])
     dt, Bm, Cm = _split_proj(params, cfg, xc)                 # (B,S,di) (B,S,N)
     A = -torch.exp(params["log_A"])                           # (di, N)
     xf = xc.to(torch.float32)
-    y = selective_scan(dt, Bm, Cm, xf, A) + xf * params["D"]  # (B,S,di)
-    y = y.to(dt_) * L.silu(z)
+    y = sh.split_map(functools.partial(_gated_scan, dt_),
+                     (dt, Bm, Cm, xf, A, params["D"], z),
+                     [(0, 2), (0, None), (0, None), (0, 2), (None, 0),
+                      (None, 0), (0, 2)], [(0, 2)], ref=3)
     return y @ params["w_out"].to(dt_)
 
 

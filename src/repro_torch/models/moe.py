@@ -26,6 +26,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import module as m
+from repro_torch.sharding import apply as sh
+from repro_torch.sharding.apply import constrain
 
 CAPACITY_FACTOR = 1.25
 
@@ -91,7 +93,7 @@ def moe_dense(params, cfg: ModelConfig,
     """All-experts path.  x: (B, S, d) -> (y, aux).  The router combine is
     folded into the down-projection's contraction over (e, f)."""
     B, S, d = x.shape
-    x2d = x.reshape(B * S, d)
+    x2d = sh.reshape(x, B * S, d)
     top_w, top_e, aux = _route(params, cfg, x2d)
     dt = x.dtype
     ex = params["experts"]
@@ -101,7 +103,7 @@ def moe_dense(params, cfg: ModelConfig,
                           device=x.device).scatter_add_(1, top_e, top_w)
     hidden = (L.silu(gate) * up) * combine[..., None]         # (T, E, F)
     y = torch.einsum("tef,efd->td", hidden, ex["w_down"].to(dt))
-    return y.reshape(B, S, d), aux
+    return sh.reshape(y, B, S, d), aux
 
 
 def dispatch_slots(flat_e: torch.Tensor, E: int, C: int
@@ -123,38 +125,49 @@ def dispatch_slots(flat_e: torch.Tensor, E: int, C: int
 
 def moe_scatter(params, cfg: ModelConfig, x: torch.Tensor,
                 act=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity scatter/gather path.  x: (B, S, d) -> (y, aux).  ``act``
-    (the reference's activation sharding) has no effect on one device."""
+    """Capacity scatter/gather path.  x: (B, S, d) -> (y, aux).  With
+    ``act`` the expert buffers take the reference's layout: experts over
+    the model axis where their count divides it (llama4), else whole
+    (granite, sharded inside each expert by its weights)."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.experts_per_token
     C = capacity(T, cfg)
-    x2d = x.reshape(T, d)
+    x2d = sh.reshape(x, T, d)
     top_w, top_e, aux = _route(params, cfg, x2d)
 
-    flat_e = top_e.reshape(T * k)
-    flat_w = top_w.reshape(T * k)
+    flat_e = sh.reshape(top_e, T * k)
+    flat_w = sh.reshape(top_w, T * k)
     slot, keep = dispatch_slots(flat_e, E, C)
     src = torch.repeat_interleave(x2d, k, dim=0) if k > 1 else x2d
     # kept tokens have distinct slots; only the waste row E*C takes
     # several writes, and it is thrown away
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, slot, src)
-    expert_out = _expert_ffn(params["experts"],
-                             buf[:E * C].reshape(E, C, d))
-    flat_out = torch.cat([expert_out.reshape(E * C, d),
+    e_ax = "M" if (act is not None
+                   and E % act.get("model_size", 16) == 0) else None
+    expert_in = constrain(sh.reshape(buf[:E * C], E, C, d), act, e_ax, None,
+                          None)
+    expert_out = constrain(_expert_ffn(params["experts"], expert_in), act,
+                           e_ax, None, None)
+    flat_out = torch.cat([sh.reshape(expert_out, E * C, d),
                           torch.zeros((1, d), dtype=x.dtype,
                                       device=x.device)], dim=0)
     y_tok = flat_out[slot] * (flat_w * keep.to(flat_w.dtype))[:, None]
-    y = y_tok.reshape(T, k, d).sum(dim=1) if k > 1 else y_tok
-    return y.reshape(B, S, d), aux
+    y = sh.reshape(y_tok, T, k, d).sum(dim=1) if k > 1 else y_tok
+    return sh.reshape(y, B, S, d), aux
 
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
             dispatch: str = "scatter", act=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``"dense"`` selects ``moe_dense``; anything else the scatter path,
-    as in the reference."""
+    as in the reference.  On DTensors either runs on gathered replicas of
+    the tokens and the moe weights (``sharding.apply.on_replicas``): the
+    scatter's capacity is shared by every token of the batch, so no split
+    of the batch keeps it exact (the reference's GSPMD partitions the
+    scatter itself; the port's sharded moe is replicated work)."""
     if dispatch == "dense":
-        return moe_dense(params, cfg, x)
-    return moe_scatter(params, cfg, x, act=act)
+        return sh.on_replicas(lambda p, h: moe_dense(p, cfg, h), params, x)
+    return sh.on_replicas(lambda p, h: moe_scatter(p, cfg, h, act=act),
+                          params, x)

@@ -6,6 +6,8 @@ the CUDA card, which raises without one; ``"cpu"`` runs the kernels'
 twins).  ``Model.init(gen)`` draws params from a ``torch.Generator`` on
 the generator's device and places them on the model's.  Every family of
 the zoo is served; an encoder-only config (hubert-xlarge) has no decode.
+``abstract_init(cfg)`` is the port's ``jax.eval_shape(model.init)``: the
+param tree as meta tensors, its paths, shapes and dtypes, with no draws.
 """
 from __future__ import annotations
 
@@ -33,6 +35,16 @@ class Model:
 
     def param_count(self, params) -> int:
         return m.param_count(params)
+
+
+def abstract_init(cfg: ModelConfig) -> Dict[str, Any]:
+    """The param tree of ``cfg`` as ``meta`` tensors: ``Model.init``'s
+    paths, shapes and dtypes, with nothing drawn or allocated (so
+    llama3-405b's and llama4-maverick's trees cost nothing)."""
+    if cfg.family == "cnn":
+        raise ValueError("abstract_init covers the transformer zoo, not the "
+                         "paper's CNN")
+    return tf.init_model(None, cfg, "meta")
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

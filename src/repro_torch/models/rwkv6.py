@@ -8,17 +8,18 @@ mixes.  The WKV recurrence per head (state S in R^{DxD}):
     y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-Full-sequence mode takes one of two paths, by whether autograd records
-(``module.records_grad``):
+Full-sequence mode takes one of two paths (``module.einsum_path``):
 
-- inference: the WKV6 wrapper (``repro_torch.kernels.wkv6``) for
+- inference on plain tensors: the WKV6 wrapper (``repro_torch.kernels.wkv6``) for
   ``wkv_impl="xla"`` and ``"wkv6_kernel"`` alike.  On a CUDA tensor it
   launches the CUDA kernel, on a CPU tensor it runs the kernel's twin
   (``kernels/wkv6/ref.py``).  w reaches it in f32 whatever the compute
   dtype, as ``_decay`` returns it;
-- training: the reference's ``wkv_scan`` (its ``wkv_impl="xla"``), a
-  loop over time in f32 in plain torch.  The kernel has no backward, nor
-  has the reference's, so ``wkv_impl="wkv6_kernel"`` raises there.
+- training, and any ``DTensor`` input (the dry run, sharded ranks): the
+  reference's ``wkv_scan`` (its ``wkv_impl="xla"``), a loop over time in
+  f32 in plain torch.  The kernel has no backward, nor has the
+  reference's, and it takes no DTensor, so ``wkv_impl="wkv6_kernel"``
+  raises there.
 
 Decode carries (shift_t, shift_c, S) and stays plain torch, as in the
 reference.
@@ -34,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models import layers as L
 from repro_torch.models import module as m
+from repro_torch.sharding import apply as sh
 
 DECAY_RANK = 64
 
@@ -75,11 +77,11 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, H: int,
                 eps: float = 64e-5):
     """Per-head groupnorm over head_dim.  y: (..., d)."""
     shp = y.shape
-    yh = y.reshape(*shp[:-1], H, shp[-1] // H).to(torch.float32)
+    yh = sh.reshape(y, *shp[:-1], H, shp[-1] // H).to(torch.float32)
     mean = yh.mean(dim=-1, keepdim=True)
     var = yh.var(dim=-1, keepdim=True, unbiased=False)
     yh = (yh - mean) * torch.rsqrt(var + eps)
-    return (yh.reshape(shp) * scale).to(y.dtype)
+    return (sh.reshape(yh, shp) * scale).to(y.dtype)
 
 
 def _wkv_inputs(params, cfg: ModelConfig, x: torch.Tensor, xx: torch.Tensor):
@@ -124,18 +126,23 @@ def time_mix_full(params, cfg: ModelConfig, x: torch.Tensor,
     D = cfg.head_dim
     H = d // D
     r, k, v, w, g = _wkv_inputs(params, cfg, x, _shift(x))
-    rh, kh, vh, wh = (a.reshape(B, S, H, D) for a in (r, k, v, w))
+    rh, kh, vh, wh = (sh.reshape(a, B, S, H, D) for a in (r, k, v, w))
     u = params["bonus_u"].reshape(H, D)
-    if not m.records_grad(rh, kh, vh, wh, u):
+    if not m.einsum_path(rh, kh, vh, wh, u):
         y, _ = wkv_ops.wkv6(rh, kh, vh, wh, u, None)
     elif impl == "wkv6_kernel":
         raise NotImplementedError(
-            "wkv_impl='wkv6_kernel' under autograd: the WKV6 kernel has no "
-            "backward, nor has the reference's; train with wkv_impl='xla'")
+            "wkv_impl='wkv6_kernel' under autograd or on DTensors: the WKV6 "
+            "kernel has no backward, nor has the reference's, and it takes "
+            "no DTensor; train and shard with wkv_impl='xla'")
     else:
         S0 = torch.zeros((B, H, D, D), dtype=torch.float32, device=x.device)
-        y, _ = wkv_scan(rh, kh, vh, wh, u, S0)
-    y = y.reshape(B, S, d).to(x.dtype)
+        # independent along the batch and the heads (on DTensors each
+        # rank runs its shards)
+        y, _ = sh.split_map(wkv_scan, (rh, kh, vh, wh, u, S0),
+                            [(0, 2)] * 4 + [(None, 0), (0, 1)],
+                            [(0, 2), (0, 1)])
+    y = sh.reshape(y, B, S, d).to(x.dtype)
     y = _group_norm(y, params["ln_scale"], H)
     return (y * L.silu(g)) @ params["w_o"].to(x.dtype)
 
@@ -178,6 +185,13 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, dtype,
     }
 
 
+def _wkv_step(r, k, v, w, u, S):
+    """One WKV step: r, k, v, w (B, H, D) f32; S (B, H, D, D)."""
+    kv = k[..., :, None] * v[..., None, :]
+    y = torch.einsum("bhi,bhij->bhj", r, S + u[..., :, None] * kv)
+    return y, w[..., :, None] * S + kv
+
+
 def time_mix_decode(params, cfg: ModelConfig, x: torch.Tensor,
                     state: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
     """x: (B, 1, d)."""
@@ -187,13 +201,13 @@ def time_mix_decode(params, cfg: ModelConfig, x: torch.Tensor,
     x1 = x[:, 0]
     xx = state["shift_t"]
     r, k, v, w, g = _wkv_inputs(params, cfg, x1, xx)
-    rh, kh, vh, wh = (a.reshape(B, H, D).to(torch.float32)
+    rh, kh, vh, wh = (sh.reshape(a, B, H, D).to(torch.float32)
                       for a in (r, k, v, w))
     u = params["bonus_u"].reshape(H, D)
-    kv = kh[..., :, None] * vh[..., None, :]
-    y = torch.einsum("bhi,bhij->bhj", rh, state["wkv"] + u[..., :, None] * kv)
-    S = wh[..., :, None] * state["wkv"] + kv
-    y = _group_norm(y.reshape(B, d).to(x.dtype), params["ln_scale"], H)
+    y, S = sh.split_map(_wkv_step, (rh, kh, vh, wh, u, state["wkv"]),
+                        [(0, 1)] * 4 + [(None, 0), (0, 1)],
+                        [(0, 1), (0, 1)], ref=5)
+    y = _group_norm(sh.reshape(y, B, d).to(x.dtype), params["ln_scale"], H)
     out = (y * L.silu(g)) @ params["w_o"].to(x.dtype)
     new_state = dict(state, shift_t=x1, wkv=S)
     return out[:, None], new_state

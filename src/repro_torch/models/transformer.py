@@ -13,24 +13,40 @@ Inputs: ``tokens`` (B, S); audio with a stub frontend takes precomputed
 frame embeddings ``embeds`` (B, S, d) and has no embedding table; vlm
 writes ``patch_embeds`` (B, P, d) over the first P positions and takes
 M-RoPE ``positions`` (B, 3, S).  ``opts`` takes the reference's keys:
-  impl          'xla' | 'flash'       (inference: both the flash-attention
-                kernel; under autograd 'xla' is the reference's einsum path
-                and 'flash' raises, the kernel having no backward)
+  impl          'xla' | 'flash'       (inference on plain tensors: both the
+                flash-attention kernel.  Under autograd, and on DTensors
+                (the dry run, sharded ranks), 'xla' is the reference's
+                einsum path and 'flash' raises: the kernel has no backward
+                and takes no DTensor.  So a DTensor program is always the
+                reference's impl='xla' program, as its dry run lowers)
   wkv_impl      'xla' | 'wkv6_kernel' (likewise: the WKV6 kernel, or under
-                autograd ``wkv_scan`` for 'xla')
+                autograd and on DTensors ``wkv_scan`` for 'xla')
   moe_dispatch  'dense' selects moe_dense, anything else the scatter path
   remat         'none' | 'full' (each layer recomputed in the backward) |
                 'dots' (each layer recomputed but for its weight products,
                 the matmuls with no batch dims: ``aten.mm``/``addmm``
                 outputs are kept, the attention ``bmm``s recomputed; the
                 counterpart of ``dots_with_no_batch_dims_saveable``)
-  act_sharding, unroll_layers: accepted, no effect (one device, eager)
+  act_sharding  the activation sharding map of ``sharding/apply.py`` or
+                None: on DTensor activations the bodies ``constrain`` them
+                where the reference does (after the embedding, q/k/v of
+                ``_sdpa_chunked``, the attention output, the moe expert
+                buffers, every layer's output) and at the residual after
+                the mixer, where DTensor cannot infer what GSPMD does; on
+                plain tensors, and for None, it does nothing
+  unroll_layers accepted, no effect: the layers are a Python loop already
   fused_head    accepted and ignored here, as the reference's forward does:
                 ``training.step.loss_fn`` reads it
   return_hidden forward_full returns the final-normed hidden states
 
 Remat changes no value: the recomputed ops are the same ops on the same
 inputs.
+
+DTensor programs: the bodies make some tensors themselves (rope angles,
+masks, positions, ``torch.arange``, zeros); the caller runs a DTensor
+program under ``torch.distributed.tensor.experimental.
+implicit_replication()``, which takes each such plain tensor as replicated
+on the mesh (``launch/dryrun.py`` does).
 """
 from __future__ import annotations
 
@@ -49,6 +65,7 @@ from repro_torch.models import module as m
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.rope import text_positions
+from repro_torch.sharding.apply import constrain, grad_like
 from repro_torch.utils.tree import tree_map
 
 DEFAULT_OPTS = {"impl": "xla", "wkv_impl": "xla",
@@ -132,9 +149,15 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def layer(params, i: int) -> Dict[str, Any]:
-    """Layer i's params from the stacked (L, ...) leaves."""
-    return tree_map(lambda a: a[i], params["layers"])
+def unstack(tree, n: int) -> list:
+    """The n per-layer trees of a tree of stacked (L, ...) leaves, by one
+    ``unbind`` a leaf (views).  Autograd then stacks the layers' gradients
+    once; indexing a leaf per layer would build a full (L, ...) gradient
+    for every layer and add them up (the same values, L times the
+    traffic).  A DTensor layer's gradient is laid out as that layer's
+    params (``sharding.apply.grad_like``)."""
+    per = tree_map(lambda a: tuple(grad_like(t) for t in a.unbind(0)), tree)
+    return [tree_map(lambda parts: parts[i], per) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -152,9 +175,16 @@ def _mixer_full(p, cfg: ModelConfig, h: torch.Tensor, positions,
                 opts) -> torch.Tensor:
     if cfg.family == "ssm":
         return rk.time_mix_full(p["time"], cfg, h, impl=opts["wkv_impl"])
-    a = attn.attend_full(p["attn"], cfg, h, positions, impl=opts["impl"])
+    a = attn.attend_full(p["attn"], cfg, h, positions, impl=opts["impl"],
+                         act=opts["act_sharding"])
     if cfg.family == "hybrid":
-        return _branch_mean(p, cfg, a, mb.mamba_full(p["mamba"], cfg, h))
+        # both branches' outputs (and their gradients) in the layer's
+        # layout: DTensor would otherwise hand the gradient of each branch's
+        # last product a layout that product's backward cannot take
+        act = opts["act_sharding"]
+        s = mb.mamba_full(p["mamba"], cfg, h)
+        return _branch_mean(p, cfg, constrain(a, act, "B", None, None),
+                            constrain(s, act, "B", None, None))
     return a
 
 
@@ -174,11 +204,17 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_full(p, cfg: ModelConfig, x: torch.Tensor, positions, opts):
+    act = opts["act_sharding"]
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + _mixer_full(p, cfg, h, positions, opts)
+    # the residual after the mixer takes the layer's canonical layout too:
+    # GSPMD carries it there from the constraints around it, DTensor needs
+    # it stated (else its Partial sums reach the ffn in layouts its matmuls
+    # cannot take)
+    x = constrain(x + _mixer_full(p, cfg, h, positions, opts), act, "B",
+                  None, None)
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     y, aux = _ffn_full(p, cfg, h, opts)
-    return x + y, aux
+    return constrain(x + y, act, "B", None, None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +243,7 @@ def forward_full(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
     opts = _opts(opts)
     dtype = m.dtype_of(cfg.dtype)
     x = embed_inputs(params, cfg, inputs, dtype)
+    x = constrain(x, opts["act_sharding"], "B", None, None)
     B, S = x.shape[:2]
     positions = inputs.get("positions")
     if positions is None:
@@ -214,8 +251,8 @@ def forward_full(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
                                    device=x.device)
     body = _remat(opts["remat"])
     auxs = []
-    for i in range(cfg.num_layers):
-        x, aux = body(layer(params, i), cfg, x, positions, opts)
+    for p in unstack(params["layers"], cfg.num_layers):
+        x, aux = body(p, cfg, x, positions, opts)
         auxs.append(aux)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.sum(torch.stack(auxs))
@@ -252,7 +289,8 @@ def _layer_decode(p, cfg: ModelConfig, x, state, position, opts):
         h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
         y, rst = rk.channel_mix_decode(p["channel"], cfg, h, rst)
         return x + y, {"rwkv": rst}
-    y, kv = attn.attend_decode(p["attn"], cfg, h, state["kv"], position)
+    y, kv = attn.attend_decode(p["attn"], cfg, h, state["kv"], position,
+                               act=opts["act_sharding"])
     new_state = {"kv": kv}
     if cfg.family == "hybrid":
         s, new_state["mamba"] = mb.mamba_decode(p["mamba"], cfg, h,
@@ -275,11 +313,14 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     Returns (logits (B, 1, vocab_padded), new_state)."""
     opts = _opts(opts)
     dtype = m.dtype_of(cfg.dtype)
-    x = L.embed(params["embed"], token, dtype)
+    act = opts["act_sharding"]
+    x = constrain(L.embed(params["embed"], token, dtype), act, "B", None,
+                  None)
     new_states = []
-    for i in range(cfg.num_layers):
-        st = tree_map(lambda a: a[i], state)
-        x, st = _layer_decode(layer(params, i), cfg, x, st, position, opts)
+    for p, st in zip(unstack(params["layers"], cfg.num_layers),
+                     unstack(state, cfg.num_layers)):
+        x, st = _layer_decode(p, cfg, x, st, position, opts)
+        x = constrain(x, act, "B", None, None)
         new_states.append(st)
     new_state = tree_map(lambda *ls: torch.stack(ls), *new_states)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

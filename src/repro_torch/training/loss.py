@@ -8,16 +8,47 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import lm_logits
+from repro_torch.sharding.apply import is_dtensor
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood, in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``_token_nll``; on DTensors it runs on each rank's shards, with the
+    vocab dim made whole first: each mesh axis that splits the vocab splits
+    the sequence instead (an all-to-all, no larger than the shard).
+    DTensor's own gather along a split vocab dim would mask its partial
+    sums for an embedding's layout, and its backward would build the
+    logits' gradient at their global size."""
+    if not is_dtensor(logits):
+        return _token_nll(logits, labels)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    last = logits.ndim - 1
+    want = tuple(Shard(last - 1) if isinstance(p, Shard) and p.dim == last
+                 else Replicate() if p.is_partial() else p
+                 for p in logits.placements)
+    mesh = logits.device_mesh
+    if want != tuple(logits.placements):
+        logits = logits.redistribute(mesh, want)
+    if tuple(labels.placements) != want:
+        labels = labels.redistribute(mesh, want)
+    return local_map(_token_nll, out_placements=(want,),
+                     in_placements=(want, want), device_mesh=mesh)(logits,
+                                                                   labels)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over (..., V) logits and (...) int labels, in f32; ``mask``
     optionally weights the terms."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    nll = _nll(logits, labels)
     if mask is not None:
         w = mask.float()
         return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)

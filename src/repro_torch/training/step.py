@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.models.registry import Model
 from repro_torch.optim.sgd import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.sharding.apply import is_dtensor, like
 from repro_torch.training.loss import cross_entropy, fused_head_cross_entropy
 from repro_torch.training.train_state import TrainState
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
@@ -47,13 +48,15 @@ def value_and_grad(model: Model, params, batch: Dict[str, Any],
                    opts: Optional[dict] = None):
     """((loss, parts), grads) of ``loss_fn`` at ``params``, grads in the
     params' structure; a leaf the loss does not reach gets zeros, as
-    ``jax.grad`` gives it."""
+    ``jax.grad`` gives it.  A DTensor param's gradient is laid out as the
+    param."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, parts = loss_fn(model, tree_unflatten(params, iter(leaves)),
                               batch, opts)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None
+             else like(g, p.placements) if is_dtensor(p) else g
              for p, g in zip(leaves, grads)]
     parts = {k: v.detach() if isinstance(v, torch.Tensor) else v
              for k, v in parts.items()}
