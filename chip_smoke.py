@@ -144,7 +144,21 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    the predicted peak within 0.8-1.25x of ``max_memory_allocated`` (less
    what the card held before beyond the step's arguments); the step's ms
    against the roofline's largest term;
-13. the card's line, the kernels' JSON line (the zoo rows with
+13. the analysis on the card (``repro_torch.analysis``).  (a) ``python -m
+   repro_torch.analysis --strict-baseline`` as a subprocess with no
+   ``--device``: the lint clean and the contracts on the card (the
+   rounds at their tiny sizes and the twins' kernel sides launch for
+   real); (b) phase 9's Fig. 3(c) group and its codec groups, each round
+   loop under ``engine_guard(budget=<its expected launches>)`` and the
+   device-to-host guard: launches equal to the budget, no implicit
+   transfer either way, no ``torch.func`` leak, no library build; (c)
+   every guard bites: a round output's ``.item()`` under
+   ``no_implicit_transfers("all")``, ``torch.ones(4).cuda()`` under
+   ``engine_guard()``, one launch over a round's budget, and the fused
+   opt round at the paper's configuration under ``memory_budget`` at half
+   its peak (and passes at its peak plus ``PEAK_SLACK``).  It prints its
+   wall time;
+14. the card's line, the kernels' JSON line (the zoo rows with
    ``train_launches``, phase 10's count, and ``opp_sync_launches``, phase
    11's, both 0; the fused-CNN rows with ``sharded_sweep_launches``, each
    sweep rank's count), every phase's wall time and the script's total,
@@ -162,6 +176,7 @@ result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -3228,6 +3243,177 @@ def dryrun_path() -> dict:
     return {"records": recs, "vs_card": vs}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the analysis on the card (lint, contracts, runtime guards)
+# ---------------------------------------------------------------------------
+
+# memory_budget's check: the fused opt round passes at its peak plus this
+PEAK_SLACK = 2 ** 20
+
+
+def start_analysis_cli():
+    """(13a) ``python -m repro_torch.analysis`` with no ``--device``: the
+    lint, and the contracts on the card (the twins' kernel sides launch).
+    Started as a subprocess; ``finish_analysis_cli`` waits for it."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict-baseline"],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def finish_analysis_cli(started) -> float:
+    proc, t0 = started
+    out, err = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    print(f"  (13a) python -m repro_torch.analysis (contracts on the card): "
+          f"exit {proc.returncode} in {secs:.1f} s: {out.strip()}")
+    if proc.returncode != 0:
+        raise AssertionError(f"repro_torch.analysis failed on the card:\n"
+                             f"{out}\n{err[-4000:]}")
+    return secs
+
+
+def guarded_groups() -> list:
+    """(13b) Phase 9's Fig. 3(c) group and its codec group, each round loop
+    under ``engine_guard(budget=<the group's expected launches>)`` and the
+    device-to-host guard: no transfer either way, launches equal to the
+    budget, no ``torch.func`` leak, no library build."""
+    from repro_torch.analysis.guards import engine_guard, no_implicit_transfers
+    from repro_torch.core import sweep
+    out = []
+    for name, ex, _ in sweep_panels():
+        if name == "fig3b":
+            continue
+        for group in sweep.compile_spec(ex.to_spec()):
+            data = sweep._sim_tensors(sweep._stack_sims(group), DEVICE)
+            carry, streams, cfg = sweep._group_inputs(group, data, DEVICE)
+            fn = sweep.build_device_round(**sweep._group_build_kwargs(group))
+            want = {n: c for n, c in expected_sweep_launches(
+                [group], SWEEP_ROUNDS).items() if c}
+            budget = sum(want.values())
+            sync()
+            t0 = time.perf_counter()
+            with engine_guard(budget=budget) as lc:
+                with no_implicit_transfers("device_to_host"):
+                    carry, per_round = sweep._scan_rounds(
+                        fn, carry, streams, data, cfg, SWEEP_ROUNDS)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = lc.launches()
+            if got != want or lc.count() != budget or lc.builds:
+                raise AssertionError(f"guarded {name}/{group.label}: "
+                                     f"launches {got} != {want} or builds "
+                                     f"{lc.builds}")
+            m = sweep._read_metrics(per_round, len(group.sims),
+                                    len(group.cfgs))
+            if not np.all(np.isfinite(m["test_loss"])):
+                raise AssertionError(f"guarded {name}/{group.label}: "
+                                     "non-finite loss")
+            # the same loop unguarded: what the guards cost while on
+            carry0, streams0, cfg0 = sweep._group_inputs(group, data, DEVICE)
+            sync()
+            t0 = time.perf_counter()
+            sweep._scan_rounds(fn, carry0, streams0, data, cfg0,
+                               SWEEP_ROUNDS)
+            sync()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            rows = len(group.sims) * len(group.cfgs)
+            print(f"  (13b) {name}/{group.label} (G={rows}): "
+                  f"{SWEEP_ROUNDS} rounds under engine_guard(budget="
+                  f"{budget}) and the device-to-host guard in {ms:.1f} ms "
+                  f"({plain_ms:.1f} ms unguarded): launches equal the "
+                  f"budget {want}, no implicit transfer, no torch.func "
+                  f"leak, 0 library builds")
+            out.append((group, fn, carry, streams, data, cfg, want))
+    return out
+
+
+def guards_bite(groups) -> dict:
+    """(13c) Each guard raises on its violation on the card; returns the
+    fused opt round's peak bytes."""
+    import torch
+    from repro_torch.analysis.guards import (ImplicitTransfer,
+                                             LaunchBudgetExceeded,
+                                             MemoryBudgetExceeded,
+                                             engine_guard, memory_budget,
+                                             no_implicit_transfers)
+    from repro_torch.core.hsfl import HSFLConfig, HSFLSimulation
+    from repro_torch.kernels.delta_codec.kernel import quantize_blocks
+
+    def raises(exc, what, fn):
+        try:
+            fn()
+        except exc as e:
+            print(f"  (13c) {what}: raised {type(e).__name__}: "
+                  f"{str(e).splitlines()[0][:160]}")
+            return
+        raise AssertionError(f"{what}: the guard did not raise {exc}")
+
+    group, fn, carry, streams, data, cfg, want = groups[0]
+    carry, m = fn(carry, SWEEP_ROUNDS + 1, streams, data, cfg)
+
+    def read_in_guard():
+        with no_implicit_transfers("all"):
+            m.test_acc[0].item()
+
+    def copy_in_guard():
+        with engine_guard():
+            torch.ones(4).cuda()
+
+    one = {n: c // SWEEP_ROUNDS for n, c in want.items()}
+    spare = torch.zeros((4, 512), device=DEVICE)
+
+    def extra_launch():
+        with engine_guard(budget=sum(one.values())):
+            fn(carry, SWEEP_ROUNDS + 2, streams, data, cfg)
+            quantize_blocks(spare)
+
+    raises(RuntimeError, ".item() of a round output under "
+           "no_implicit_transfers('all')", read_in_guard)
+    raises(ImplicitTransfer, "torch.ones(4).cuda() under engine_guard()",
+           copy_in_guard)
+    raises(LaunchBudgetExceeded, f"one round of {group.label} plus one "
+           f"quantize_blocks under a budget of the round's "
+           f"{sum(one.values())} launches", extra_launch)
+
+    # memory_budget around the fused opt round at the paper's configuration:
+    # round 2 of three copies of one simulation, so that each runs the same
+    # round (K, the schedule) from the same state
+    sim = HSFLSimulation(HSFLConfig(rounds=2, scheme="opt", b=2))
+    sim.run_round(1, [])                          # warm-up
+    sims = [copy.deepcopy(sim) for _ in range(3)]
+    with memory_budget(2 ** 40) as rec:
+        sims[0].run_round(2, [])
+    (label, peak), = rec
+    with memory_budget(peak + PEAK_SLACK) as rec2:
+        sims[1].run_round(2, [])
+
+    def half_peak():
+        with memory_budget(peak // 2):
+            sims[2].run_round(2, [])
+
+    raises(MemoryBudgetExceeded, f"the fused opt round under half its "
+           f"{peak}-byte peak", half_peak)
+    print(f"  (13c) fused opt round 2 (paper config): {label} {peak} bytes "
+          f"({peak / 2**20:.2f} MiB); again {rec2[0][1]} bytes under a "
+          f"budget of that peak + {PEAK_SLACK} bytes")
+    return {"peak_bytes": peak}
+
+
+def analysis_path() -> dict:
+    """Phase 13: (a) the CLI in a subprocess while this process runs (b)
+    and (c)."""
+    t0 = time.perf_counter()
+    started = start_analysis_cli()
+    groups = guarded_groups()
+    numbers = guards_bite(groups)
+    numbers["cli_s"] = finish_analysis_cli(started)
+    numbers["wall_s"] = time.perf_counter() - t0
+    print(f"  analysis phase wall time {numbers['wall_s']:.1f} s")
+    return numbers
+
+
 class PhaseClock:
     """Wall time of each phase: ``start`` ends the running phase, printing
     its seconds, and begins the next; ``summary`` is every phase's seconds
@@ -3362,6 +3548,10 @@ def main() -> int:
     clock.start(12, f"the dry run ({DRYRUN_ARCH} on fake 256- and 512-rank "
                     f"worlds; its prediction of phase 10's step vs the card)")
     dryrun_path()
+
+    clock.start(13, "analysis on the card (lint + contracts on cuda, the "
+                    "guarded sweep groups, every guard bites)")
+    analysis_path()
 
     rows = []
     for n in REPLACES:

@@ -136,7 +136,9 @@ def forward_im2col(params, images: torch.Tensor,
     y = _fc(params["fc1"], y)
     y = _fc(params["fc2"], y)
     y = _fc(params["fc3"], y, act=False)
-    return y.float() if compute_dtype is not None else y
+    if compute_dtype is None:
+        return y
+    return y.float()  # analysis: ok=dtype-thread (f32 logits by contract)
 
 
 def forward_im2col_k(params, images: torch.Tensor,

@@ -1288,6 +1288,74 @@ def test_sweep_over_two_ranks_on_the_card_is_bitwise_unsharded(cuda,
 
 
 # ---------------------------------------------------------------------------
+# the runtime guards (repro_torch.analysis.guards) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_transfer_guards_bite_on_the_card(cuda):
+    from repro_torch.analysis.guards import (ImplicitTransfer,
+                                             no_implicit_transfers)
+    staged = torch.ones(4, device=cuda)
+    with no_implicit_transfers():
+        with pytest.raises(ImplicitTransfer, match="_to_copy"):
+            torch.ones(4).cuda()
+        with pytest.raises(ImplicitTransfer, match="tensor"):
+            torch.tensor([1.0, 2.0], device=cuda)
+        with pytest.raises(ImplicitTransfer, match="copy_"):
+            staged.copy_(torch.zeros(4))
+        assert (staged + 1).sum().item() == 8.0   # reads stay legal
+        staged.to(torch.bfloat16)
+    for direction in ("device_to_host", "all"):
+        with no_implicit_transfers(direction):
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                (staged + 1).sum().item()
+        assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def _guarded_round(cuda, codec):
+    from repro_torch.analysis import contracts as tc
+    from repro_torch.core.channel_lib import ChannelParams
+    from repro_torch.core.fused_round import build_device_round
+    from repro_torch.kernels import _build
+    _build.build_all()
+    fn = build_device_round(
+        scheme="opt", local_epochs=2, steps_per_epoch=1, batch_size=4,
+        lr=0.01, k_select=4, channel=ChannelParams(), model_bytes=1e6,
+        ue_model_fraction=0.25, use_codec=codec)
+    # per round: 2 epochs x 1 step (2 conv fwd, 2 conv bwd, 1 fc fwd, 1 fc
+    # bwd launches each) and one eval (2 conv fwd, 1 fc fwd); the codec
+    # quantizes every epoch and dequantizes once
+    want = {"conv_pool_fwd_k": 6, "conv_pool_bwd_k": 4, "fc_chain_fwd_k": 3,
+            "fc_chain_bwd_k": 2}
+    if codec:
+        want.update(quantize_blocks=2, dequantize_blocks=1)
+    return fn, tc.device_round_inputs(cuda), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", [False, True])
+def test_device_round_under_engine_guard_on_the_card(cuda, codec):
+    from repro_torch.analysis.guards import (LaunchBudgetExceeded,
+                                             engine_guard,
+                                             no_implicit_transfers)
+    fn, (carry, stream, sim, cfg), want = _guarded_round(cuda, codec)
+    budget = 2 * sum(want.values())
+    with engine_guard(budget=budget) as lc:
+        for t in (1, 2):
+            carry, metrics = fn(carry, t, stream, sim, cfg)
+    assert lc.launches() == {k: 2 * v for k, v in want.items()}
+    assert lc.count() == budget and lc.builds == []
+    assert bool(torch.isfinite(metrics.test_loss).all())
+    with pytest.raises(LaunchBudgetExceeded, match=f"budget is {budget - 1}"):
+        with engine_guard(budget=budget - 1):
+            for t in (3, 4):
+                carry, metrics = fn(carry, t, stream, sim, cfg)
+    with no_implicit_transfers("all"):
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            metrics.test_acc[0].item()
+
+
+# ---------------------------------------------------------------------------
 # import hygiene: runs everywhere
 # ---------------------------------------------------------------------------
 
@@ -1341,7 +1409,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.examples.uav_fl_sim, "
             "repro_torch.core.opportunistic_sync, repro_torch.launch.mesh, "
             "repro_torch.sharding.rules, "
-            "repro_torch.examples.opportunistic_multipod\n"
+            "repro_torch.examples.opportunistic_multipod, "
+            "repro_torch.analysis, repro_torch.analysis.contracts, "
+            "repro_torch.analysis.guards, repro_torch.analysis.rules\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
             "assert not bad, bad\n"
