@@ -146,9 +146,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    against the roofline's largest term;
 13. the analysis on the card (``repro_torch.analysis``).  (a) ``python -m
    repro_torch.analysis --strict-baseline`` as a subprocess with no
-   ``--device``: the lint clean and the contracts on the card (the
-   rounds at their tiny sizes and the twins' kernel sides launch for
-   real); (b) phase 9's Fig. 3(c) group and its codec groups, each round
+   ``--device``: the lint clean and the contracts on the card (the rounds
+   at their tiny sizes and the twins' kernel sides launch for real); and
+   ``--ir``, started as a subprocess with phase 12 on the cores its dry
+   run leaves: the IR sweep clean (every registry program traced on the
+   CPU through the twins at K = 4, 16, 64, 256: the graph walk, the bf16
+   audit and the K-scaling gate against
+   ``src/repro_torch/analysis/scaling.json``); (b) phase 9's Fig. 3(c) group and its codec groups, each round
    loop under ``engine_guard(budget=<its expected launches>)`` and the
    device-to-host guard: launches equal to the budget, no implicit
    transfer either way, no ``torch.func`` leak, no library build; (c)
@@ -156,8 +160,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``no_implicit_transfers("all")``, ``torch.ones(4).cuda()`` under
    ``engine_guard()``, one launch over a round's budget, and the fused
    opt round at the paper's configuration under ``memory_budget`` at half
-   its peak (and passes at its peak plus ``PEAK_SLACK``).  It prints its
-   wall time;
+   its peak (and passes at its peak plus ``PEAK_SLACK``); (d) the IR
+   walker's peak of that same round, traced on the CPU from the card
+   run's own inputs, beside the card's ``max_memory_allocated`` for it,
+   and their ratio (no bound).  It prints its wall time;
 14. the card's line, the kernels' JSON line (the zoo rows with
    ``train_launches``, phase 10's count, and ``opp_sync_launches``, phase
    11's, both 0; the fused-CNN rows with ``sharded_sweep_launches``, each
@@ -3251,27 +3257,52 @@ def dryrun_path() -> dict:
 PEAK_SLACK = 2 ** 20
 
 
-def start_analysis_cli():
-    """(13a) ``python -m repro_torch.analysis`` with no ``--device``: the
-    lint, and the contracts on the card (the twins' kernel sides launch).
-    Started as a subprocess; ``finish_analysis_cli`` waits for it."""
+# processes of the IR sweep (13a), which runs beside phases 12 and 13
+IR_JOBS = 6
+
+
+def start_analysis_cli(*flags: str):
+    """(13a) ``python -m repro_torch.analysis`` as a subprocess with no
+    ``--device``; ``finish_analysis_cli`` waits for it.  Two are started:
+    the lint and the contracts on the card (the twins' kernel sides
+    launch), beside 13b-d; and, with phase 12, the IR sweep (``--ir
+    --no-lint --no-contracts``: the graph walk, the bf16 audit and the
+    K-scaling gate against the committed record, every registry program
+    traced on the CPU through the twins in ``IR_JOBS`` processes), which
+    needs no card and runs on the cores the dry run leaves."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.analysis", "--strict-baseline"],
+        [sys.executable, "-m", "repro_torch.analysis", *flags],
         cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True), time.perf_counter()
+        text=True, start_new_session=True), time.perf_counter(), \
+        " ".join(flags)
+
+
+def stop_analysis_cli(started) -> None:
+    """Kill a CLI still running (a phase failed first), its sweep's
+    worker processes with it (their own session)."""
+    import signal
+    proc = started[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
 
 
 def finish_analysis_cli(started) -> float:
-    proc, t0 = started
-    out, err = proc.communicate(timeout=600)
+    proc, t0, flags = started
+    out, err = proc.communicate(timeout=900)
     secs = time.perf_counter() - t0
-    print(f"  (13a) python -m repro_torch.analysis (contracts on the card): "
-          f"exit {proc.returncode} in {secs:.1f} s: {out.strip()}")
+    print(f"  (13a) python -m repro_torch.analysis {flags}: exit "
+          f"{proc.returncode} after {secs:.1f} s: {out.strip()}")
     if proc.returncode != 0:
-        raise AssertionError(f"repro_torch.analysis failed on the card:\n"
-                             f"{out}\n{err[-4000:]}")
+        raise AssertionError(f"repro_torch.analysis {flags} failed on the "
+                             f"card's host:\n{out}\n{err[-4000:]}")
     return secs
+
+
+def start_ir_sweep():
+    return start_analysis_cli("--ir", "--no-lint", "--no-contracts",
+                              "--jobs", str(IR_JOBS))
 
 
 def guarded_groups() -> list:
@@ -3331,7 +3362,8 @@ def guarded_groups() -> list:
 
 def guards_bite(groups) -> dict:
     """(13c) Each guard raises on its violation on the card; returns the
-    fused opt round's peak bytes."""
+    fused opt round's peak bytes, and the round's function and its inputs
+    copied to the host (for 13d)."""
     import torch
     from repro_torch.analysis.guards import (ImplicitTransfer,
                                              LaunchBudgetExceeded,
@@ -3340,6 +3372,7 @@ def guards_bite(groups) -> dict:
                                              no_implicit_transfers)
     from repro_torch.core.hsfl import HSFLConfig, HSFLSimulation
     from repro_torch.kernels.delta_codec.kernel import quantize_blocks
+    from repro_torch.utils.tree import tree_map
 
     def raises(exc, what, fn):
         try:
@@ -3383,6 +3416,15 @@ def guards_bite(groups) -> dict:
     sim = HSFLSimulation(HSFLConfig(rounds=2, scheme="opt", b=2))
     sim.run_round(1, [])                          # warm-up
     sims = [copy.deepcopy(sim) for _ in range(3)]
+    fused, seen = sims[0]._fused, {}
+
+    def capture(*args):
+        # the round's inputs on the host, for the walker (13d): a copy to
+        # the host allocates nothing on the card
+        seen["args"] = tuple(tree_map(lambda t: t.cpu(), a) for a in args)
+        return fused(*args)
+
+    sims[0]._fused = capture
     with memory_budget(2 ** 40) as rec:
         sims[0].run_round(2, [])
     (label, peak), = rec
@@ -3398,17 +3440,47 @@ def guards_bite(groups) -> dict:
     print(f"  (13c) fused opt round 2 (paper config): {label} {peak} bytes "
           f"({peak / 2**20:.2f} MiB); again {rec2[0][1]} bytes under a "
           f"budget of that peak + {PEAK_SLACK} bytes")
-    return {"peak_bytes": peak}
+    return {"peak_bytes": peak, "fused": fused, "args": seen["args"]}
 
 
-def analysis_path() -> dict:
-    """Phase 13: (a) the CLI in a subprocess while this process runs (b)
-    and (c)."""
+def walker_vs_card(fused, args, card_peak: int) -> dict:
+    """(13d) The IR walker's peak of the same fused opt round (round 2,
+    paper config), traced on the CPU from the card run's own inputs
+    through the twins, beside the card's ``max_memory_allocated`` over
+    the round (13c).  No bound: the walker counts every buffer the twins'
+    plain torch asks for, each freed at its last use; the card, the
+    kernels' and the caching allocator's."""
+    from repro_torch.analysis.ir.graph_audit import audit_graph, trace_fn
     t0 = time.perf_counter()
-    started = start_analysis_cli()
-    groups = guarded_groups()
-    numbers = guards_bite(groups)
-    numbers["cli_s"] = finish_analysis_cli(started)
+    audit = audit_graph("fused_round[opt]", trace_fn(fused, args))
+    secs = time.perf_counter() - t0
+    k = args[1].shape[1]
+    top = ", ".join(f"{b.site.label()} {b.nbytes}"
+                    for b in audit.top_buffers(4))
+    print(f"  (13d) walker peak of fused_round[opt] (paper config, the "
+          f"round's K bucket {k}, {audit.n_eqns} aten ops, traced in "
+          f"{secs:.1f} s): {audit.peak_bytes} bytes vs the card's "
+          f"{card_peak} bytes: ratio walker/card "
+          f"{audit.peak_bytes / card_peak:.4f}; largest at the peak: {top}")
+    return {"walker_peak_bytes": audit.peak_bytes, "k": k,
+            "ratio": audit.peak_bytes / card_peak}
+
+
+def analysis_path(ir_sweep) -> dict:
+    """Phase 13: (a) the CLI in a subprocess while this process runs (b),
+    (c) and (d); then the IR sweep's subprocess, started with phase 12."""
+    t0 = time.perf_counter()
+    started = start_analysis_cli("--strict-baseline")
+    try:
+        groups = guarded_groups()
+        numbers = guards_bite(groups)
+        numbers.update(walker_vs_card(numbers.pop("fused"),
+                                      numbers.pop("args"),
+                                      numbers["peak_bytes"]))
+        numbers["cli_s"] = finish_analysis_cli(started)
+    finally:
+        stop_analysis_cli(started)
+    numbers["ir_s"] = finish_analysis_cli(ir_sweep)
     numbers["wall_s"] = time.perf_counter() - t0
     print(f"  analysis phase wall time {numbers['wall_s']:.1f} s")
     return numbers
@@ -3547,11 +3619,16 @@ def main() -> int:
 
     clock.start(12, f"the dry run ({DRYRUN_ARCH} on fake 256- and 512-rank "
                     f"worlds; its prediction of phase 10's step vs the card)")
-    dryrun_path()
-
-    clock.start(13, "analysis on the card (lint + contracts on cuda, the "
-                    "guarded sweep groups, every guard bites)")
-    analysis_path()
+    ir_sweep = start_ir_sweep()
+    try:
+        dryrun_path()
+        clock.start(13, "analysis on the card (lint + contracts on cuda, "
+                        "the guarded sweep groups, every guard bites, the IR "
+                        "walker vs the card, the IR sweep begun with phase "
+                        "12)")
+        analysis_path(ir_sweep)
+    finally:
+        stop_analysis_cli(ir_sweep)
 
     rows = []
     for n in REPLACES:

@@ -1,7 +1,7 @@
 """repro_torch.analysis — repo-specific static analysis for the port
-(``repro/analysis`` without its IR auditors).
+(``repro/analysis``).
 
-Three halves:
+Four parts:
 
 - ``lint``: AST rules over the port's own invariants (scheme-registry
   dispatch, host-sync-free traced bodies, generator discipline,
@@ -10,7 +10,14 @@ Three halves:
   fake tensors where the code is plain torch and for real at tiny sizes
   where it goes through a kernel wrapper (see its docstring);
 - ``guards``: runtime context managers (launch budgets, transfer guards,
-  transform-leak checks, memory budgets) the guarded runs go under.
+  transform-leak checks, memory budgets) the guarded runs go under;
+- ``ir``: the IR auditors on aten graphs from ``make_fx`` (``--ir``): the
+  K-parameterized program registry, the liveness walk with per-buffer
+  provenance, the bf16→f32 promotion audit and the K-scaling gate
+  against the committed ``src/repro_torch/analysis/scaling.json`` (see
+  its docstring).  Their programs are traced on the CPU through the
+  kernels' twins, as the reference traces its Pallas bodies with
+  ``interpret=True``.
 
 CLI: ``python -m repro_torch.analysis`` — file:line findings, exit 1 on
 any finding that is neither pragma'd (``# analysis: ok=<rule>``) nor in
@@ -44,11 +51,27 @@ reference rule     port rule            what changes
                                         program that copies undonated
                                         inputs: the engines update their
                                         carries in place
+``ir-trace``       ``ir-trace``         a program that fails to trace to
+                                        an aten graph (``make_fx``, real
+                                        mode, CPU tensors)
+``ir-dtype``       ``ir-dtype``         aten has no implicit convert: any
+                                        op minting f32 from bf16 operands
+                                        fires; only a conversion
+                                        (``_to_copy``, ``copy_``) with a
+                                        visible cast on its line is
+                                        exempt.  The reference's
+                                        ``preferred_element_type``
+                                        exemption has no counterpart
+                                        (aten products return their
+                                        operands' dtype)
+``ir-alias``       none                 the port donates nothing, so there
+                                        is no donation for a compiler to
+                                        drop (as ``jit-donate``)
+``ir-scaling``     ``ir-scaling``       the port's record and budgets
+                                        (``core``, ``kernels``,
+                                        ``models``, arguments and torch's
+                                        own frames declared O(K))
 =================  ===================  ==================================
-
-The reference's IR auditors (``repro/analysis/ir``: the jaxpr liveness
-walk, the bf16-promotion audit, the donation audit and the K-scaling gate)
-have no counterpart here yet.
 """
 from repro_torch.analysis.findings import Baseline, Finding
 from repro_torch.analysis.guards import (ImplicitTransfer,

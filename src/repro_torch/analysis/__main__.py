@@ -1,7 +1,9 @@
 """CLI: ``python -m repro_torch.analysis [paths...]``.
 
-Runs the AST lint rules and the contract sweep over the port's tree.
-Prints ``path:line:col: [rule] message`` findings (``--format`` switches
+Runs the AST lint rules and the contract sweep over the port's tree, and,
+with ``--ir``, the IR auditors (the aten-graph liveness walk, the bf16
+promotion audit and the K-scaling gate against the committed
+``src/repro_torch/analysis/scaling.json``).  Prints ``path:line:col: [rule] message`` findings (``--format`` switches
 to GitHub annotations or SARIF) and exits non-zero if any finding is
 neither pragma'd (``# analysis: ok=<rule>``) nor listed in the baseline
 file (``src/repro_torch/analysis/baseline.txt``) with a justification.
@@ -9,11 +11,16 @@ file (``src/repro_torch/analysis/baseline.txt``) with a justification.
 The contracts run on ``--device`` (default: the CUDA card, where the
 kernels launch; without a card that raises, as every entry point of the
 port does).  ``--device cpu`` runs them on the CPU; ``--no-contracts``
-needs no device.
+needs no device.  The IR sweep traces its programs on the CPU whatever
+``--device`` says: it is the counterpart of the reference's
+``interpret=True`` programs, every kernel wrapper running its plain twin
+on CPU tensors (``analysis/ir/programs.py``), not a fallback from the
+card.  ``--jobs`` spreads its programs over that many processes.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -22,6 +29,14 @@ from repro_torch.analysis.lint import all_rules, lint_paths
 
 DEFAULT_PATHS = ("src/repro_torch",)
 DEFAULT_BASELINE = "src/repro_torch/analysis/baseline.txt"
+DEFAULT_SCALING = "src/repro_torch/analysis/scaling.json"
+
+# program-level IR rules (no AST Rule object to describe them)
+IR_RULE_DESCRIPTIONS = {
+    "ir-trace": "engine program failed to trace to an aten graph",
+    "ir-dtype": "f32 tensor minted from bf16 operands in a bf16 program",
+    "ir-scaling": "buffer scales past its declared O(K) budget",
+}
 _HEADER = ["# repro.analysis baseline — reviewed exceptions.",
            "# Format: path :: rule :: offending source line "
            ":: justification."]
@@ -34,11 +49,24 @@ def find_repo_root(start: Path) -> Path:
     return start
 
 
+def default_jobs() -> int:
+    return max(1, min(8, os.cpu_count() or 1))
+
+
+def run_ir(root: Path, scaling_file: str, jobs: int):
+    """The IR sweep (graph walk + dtype audit + scaling gate), traced on
+    the CPU.  Lazy imports: this pulls in every engine."""
+    from repro_torch.analysis.ir import run_scaling_gate, sweep
+    findings, report = sweep(jobs=jobs)
+    gate, _ = run_scaling_gate(committed=root / scaling_file, report=report)
+    return findings + gate
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="repo-specific static analysis of the port (lint + "
-                    "contracts)")
+                    "contracts + IR audit)")
     ap.add_argument("paths", nargs="*", default=None,
                     help=f"files/dirs to lint (default: {DEFAULT_PATHS})")
     ap.add_argument("--root", type=Path, default=None,
@@ -52,6 +80,20 @@ def main(argv=None) -> int:
                     help="skip the contract sweep (lint only, no device)")
     ap.add_argument("--no-lint", action="store_true",
                     help="skip the AST lint rules (contracts only)")
+    ap.add_argument("--ir", action="store_true",
+                    help="run the IR auditors (aten-graph walk, bf16 "
+                         "promotion audit, K-scaling gate); their programs "
+                         "are traced on the CPU whatever --device says, "
+                         "every kernel wrapper running its plain twin, as "
+                         "the reference traces its kernels with "
+                         "interpret=True")
+    ap.add_argument("--scaling-file", default=DEFAULT_SCALING,
+                    help="committed scaling record, relative to the root")
+    ap.add_argument("--write-scaling", action="store_true",
+                    help="regenerate the committed scaling record and exit")
+    ap.add_argument("--jobs", type=int, default=default_jobs(),
+                    help="processes of the IR sweep (default: the CPU "
+                         "count, at most 8)")
     ap.add_argument("--format", choices=sorted(RENDERERS), default="text",
                     help="finding output format (default: text)")
     ap.add_argument("--write-baseline", action="store_true",
@@ -70,6 +112,15 @@ def main(argv=None) -> int:
     if args.list_rules:
         for rule in all_rules():
             print(f"{rule.name:15s} {rule.description}")
+        for name, desc in sorted(IR_RULE_DESCRIPTIONS.items()):
+            print(f"{name:15s} {desc} (--ir)")
+        return 0
+
+    if args.write_scaling:
+        from repro_torch.analysis.ir import sweep, write_scaling_json
+        out = root / args.scaling_file
+        write_scaling_json(out, sweep(jobs=args.jobs)[1])
+        print(f"wrote {out}")
         return 0
 
     device = None
@@ -86,6 +137,14 @@ def main(argv=None) -> int:
         # imported lazily: the contract sweep imports every engine
         from repro_torch.analysis.contracts import run_contracts
         findings.extend(run_contracts(repo_root=root, device=device))
+    if args.ir:
+        findings.extend(run_ir(root, args.scaling_file, args.jobs))
+        # IR findings carry real source sites; load those files so the
+        # inline-pragma layer applies to them like any lint finding
+        for f in findings:
+            fpath = root / f.path
+            if f.path not in sources and fpath.is_file():
+                sources[f.path] = fpath.read_text().splitlines()
 
     baseline_path = root / args.baseline
     baseline = Baseline.load(baseline_path)
@@ -126,6 +185,8 @@ def main(argv=None) -> int:
         parts = [] if args.no_lint else ["lint"]
         if not args.no_contracts:
             parts.append(f"contracts on {device}")
+        if args.ir:
+            parts.append("ir on cpu")
         print(f"repro_torch.analysis: clean ({' + '.join(parts)})"
               if parts else "repro_torch.analysis: clean")
     return 0

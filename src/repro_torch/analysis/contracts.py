@@ -45,9 +45,10 @@ Checked contracts:
 4. **Scheme program identity** — ``lowered_program`` of every scheme
    resolves to a registered scheme for representative budget pins.
 
-``run_contracts(repo_root, device=None)`` follows the port's device rule
-(``repro_torch.device``): ``None`` is the CUDA card, and without one it
-raises.
+``run_contracts(repo_root, device=None)``, ``check_device_round``,
+``check_fused_round`` and ``check_kernel_twins`` follow the port's device
+rule (``repro_torch.device``): ``None`` is the CUDA card, and without one
+they raise.
 """
 from __future__ import annotations
 
@@ -266,8 +267,10 @@ def device_round_signature(scheme: str, extra: Dict, device
     return carry_in, spec_tree(out_carry), spec_tree(metrics)
 
 
-def check_device_round(schemes=None, device="cpu") -> List[Finding]:
-    """Contract 1: per-scheme carry stability of build_device_round."""
+def check_device_round(schemes=None, device=None) -> List[Finding]:
+    """Contract 1: per-scheme carry stability of build_device_round, on
+    ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     findings: List[Finding] = []
     g = _S * _C
     for label, name, extra in device_round_variants(schemes):
@@ -350,9 +353,11 @@ def fused_round_signature(name: str, device) -> Dict[str, Any]:
     return out
 
 
-def check_fused_round(schemes=None, device="cpu") -> List[Finding]:
-    """Contract 2: build_fused_round preserves the params' specs."""
+def check_fused_round(schemes=None, device=None) -> List[Finding]:
+    """Contract 2: build_fused_round preserves the params' specs, on
+    ``device`` (``None``: the card)."""
     from repro_torch.core.schemes import registered_schemes
+    device = resolve_device(device)
 
     findings: List[Finding] = []
     for name in (schemes or registered_schemes()):
@@ -540,8 +545,10 @@ def kernel_twin_packages(repo_root: Path) -> set:
 
 
 def check_kernel_twins(repo_root: Path | None = None,
-                       device="cpu") -> List[Finding]:
-    """Contract 3: twin signatures agree + every twin package is covered."""
+                       device=None) -> List[Finding]:
+    """Contract 3: twin signatures agree + every twin package is covered,
+    on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     findings: List[Finding] = []
     registry = twin_registry(device)
     for name, path, ref_thunk, kernel_thunk in registry:

@@ -34,6 +34,14 @@ replicated DTensors: every program runs under ``implicit_replication``.
 - decode: one token against a ``seq_len``-deep cache, the state in and
   out laid out by ``decode_state_specs``.
 
+The recurrences run as Python loops over S on DTensors (4096 fake steps
+a layer to train at 4k, and again in the backward), so ``measure`` counts
+each at two short lengths and extends it affinely in S, forward and
+backward (``utils.op_stats.recurrence``): the rest of the program runs at
+full S, and the recurrence's outputs keep their true shapes, placements
+and live bytes.  The tests hold the extended counts equal to the full
+loop's at a short S.
+
 ``calibrate`` keeps the reference's affine pair: the program at 1 and 2
 layers, extrapolated as X(L) = X(1) + (L-1)·(X(2) - X(1)) for the FLOPs,
 bytes and collective bytes.  In eager torch the full program's own counts
@@ -203,15 +211,19 @@ def build_program(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
 
 
 def measure(cfg: ModelConfig, shape: InputShape, mesh, multi_pod: bool,
-            opts: Optional[dict] = None, device=None) -> Dict[str, Any]:
+            opts: Optional[dict] = None, device=None,
+            full_loops: bool = False) -> Dict[str, Any]:
     """Run one program on fake tensors over ``mesh`` and return rank 0's
-    ``ProgramStats`` record and its seconds."""
+    ``ProgramStats`` record and its seconds.  The recurrences (the WKV
+    scan, mamba's selective scan) are counted at two short lengths and
+    extended in S (``utils.op_stats.recurrence``), unless ``full_loops``
+    runs them step by step."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     t0 = time.perf_counter()
     with FakeTensorMode(allow_non_fake_inputs=True):
         fn, args = build_program(cfg, shape, mesh, multi_pod, opts, device)
-        with ProgramStats(hold=args) as stats:
+        with ProgramStats(hold=args, extrapolate=not full_loops) as stats:
             out = fn(*args)
             stats.outputs(out)
         del out, args

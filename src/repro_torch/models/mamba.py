@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import module as m
 from repro_torch.sharding import apply as sh
+from repro_torch.utils.op_stats import recurrence
 
 # time steps whose decays and inputs are formed at once in the scan: a
 # bound on its scratch (B x SCAN_CHUNK x d_inner x N f32, three buffers)
@@ -62,7 +63,9 @@ def _split_proj(params, cfg: ModelConfig, xc: torch.Tensor):
     """xc: (..., di) post-conv activations -> (dt (.., di), B (.., N),
     C (.., N)), all f32."""
     N, R = cfg.ssm_state, dt_rank(cfg)
-    proj = xc @ params["w_xproj"].to(xc.dtype)
+    # on DTensors the product over di (split over the model axis) is a
+    # partial sum: done here, as GSPMD does it
+    proj = sh.settle(xc @ params["w_xproj"].to(xc.dtype))
     dtr, Bm, Cm = proj[..., :R], proj[..., R:R + N], proj[..., R + N:]
     dt = softplus(dtr @ params["w_dt"].to(xc.dtype)).to(torch.float32)
     return dt, Bm.to(torch.float32), Cm.to(torch.float32)
@@ -94,23 +97,25 @@ def selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     h = torch.zeros((B_, di, A.shape[1]), dtype=torch.float32,
                     device=xf.device)
     ys = []
-    for t0 in range(0, S, SCAN_CHUNK):
-        t1 = min(S, t0 + SCAN_CHUNK)
-        dtc = dt[:, t0:t1, :, None]
-        decay = torch.exp(dtc * A)                            # (B,c,di,N)
-        inp = (dt[:, t0:t1] * xf[:, t0:t1])[..., None] * Bm[:, t0:t1, None, :]
+    # one split a tensor and one unbind a chunk, whose backwards are one
+    # cat and one stack: slicing a chunk and indexing a step would make a
+    # zero-filled gradient of the whole for every one, S² work in all
+    for dtc, xc, Bc, Cc in zip(*(a.split(SCAN_CHUNK, dim=1)
+                                 for a in (dt, xf, Bm, Cm))):
+        decay = torch.exp(dtc[..., None] * A)                 # (B,c,di,N)
+        inp = (dtc * xc)[..., None] * Bc[:, :, None, :]
         if train:
             states = []
-            for j in range(t1 - t0):
-                h = decay[:, j] * h + inp[:, j]
+            for dj, ij in zip(decay.unbind(1), inp.unbind(1)):
+                h = dj * h + ij
                 states.append(h)
             hs = torch.stack(states, dim=1)
         else:
             hs = torch.empty_like(decay)
-            for j in range(t1 - t0):
+            for j in range(decay.shape[1]):
                 torch.mul(decay[:, j], h, out=hs[:, j])
                 h = hs[:, j].add_(inp[:, j])
-        ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cm[:, t0:t1]))
+        ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cc))
     return torch.cat(ys, dim=1)
 
 
@@ -118,6 +123,13 @@ def _gated_scan(out_dtype, dt, Bm, Cm, xf, A, D, z):
     """The scan, its skip term and the output gate: (B, S, di)."""
     y = selective_scan(dt, Bm, Cm, xf, A) + xf * D
     return y.to(out_dtype) * L.silu(z)
+
+
+# the scan as the dry run counts it (``utils.op_stats.recurrence``): short
+# lengths extended in S, the chunks' own cost included; elsewhere
+# ``_gated_scan`` itself
+GATED_SCAN = recurrence(_gated_scan, time_args=(1, 2, 3, 4, 7),
+                        time_outs=(0,), period=SCAN_CHUNK)
 
 
 def mamba_full(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -133,7 +145,7 @@ def mamba_full(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt, Bm, Cm = _split_proj(params, cfg, xc)                 # (B,S,di) (B,S,N)
     A = -torch.exp(params["log_A"])                           # (di, N)
     xf = xc.to(torch.float32)
-    y = sh.split_map(functools.partial(_gated_scan, dt_),
+    y = sh.split_map(functools.partial(GATED_SCAN, dt_),
                      (dt, Bm, Cm, xf, A, params["D"], z),
                      [(0, 2), (0, None), (0, None), (0, 2), (None, 0),
                       (None, 0), (0, 2)], [(0, 2)], ref=3)

@@ -27,7 +27,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import module as m
 from repro_torch.sharding import apply as sh
-from repro_torch.sharding.apply import constrain
 
 CAPACITY_FACTOR = 1.25
 
@@ -123,51 +122,76 @@ def dispatch_slots(flat_e: torch.Tensor, E: int, C: int
     return slot, keep
 
 
-def moe_scatter(params, cfg: ModelConfig, x: torch.Tensor,
-                act=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity scatter/gather path.  x: (B, S, d) -> (y, aux).  With
-    ``act`` the expert buffers take the reference's layout: experts over
-    the model axis where their count divides it (llama4), else whole
-    (granite, sharded inside each expert by its weights)."""
+def _dispatch(params, cfg: ModelConfig, x: torch.Tensor):
+    """Router, top-k and capacity slots.  x: (B, S, d) -> (expert_in
+    (E, C, d), slot (T·k,), keep (T·k,), flat_w (T·k,), aux)."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.experts_per_token
     C = capacity(T, cfg)
-    x2d = sh.reshape(x, T, d)
+    x2d = x.reshape(T, d)
     top_w, top_e, aux = _route(params, cfg, x2d)
-
-    flat_e = sh.reshape(top_e, T * k)
-    flat_w = sh.reshape(top_w, T * k)
+    flat_e = top_e.reshape(T * k)
+    flat_w = top_w.reshape(T * k)
     slot, keep = dispatch_slots(flat_e, E, C)
     src = torch.repeat_interleave(x2d, k, dim=0) if k > 1 else x2d
     # kept tokens have distinct slots; only the waste row E*C takes
     # several writes, and it is thrown away
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, slot, src)
-    e_ax = "M" if (act is not None
-                   and E % act.get("model_size", 16) == 0) else None
-    expert_in = constrain(sh.reshape(buf[:E * C], E, C, d), act, e_ax, None,
-                          None)
-    expert_out = constrain(_expert_ffn(params["experts"], expert_in), act,
-                           e_ax, None, None)
-    flat_out = torch.cat([sh.reshape(expert_out, E * C, d),
-                          torch.zeros((1, d), dtype=x.dtype,
-                                      device=x.device)], dim=0)
+    return buf[:E * C].reshape(E, C, d), slot, keep, flat_w, aux
+
+
+def _combine(expert_out: torch.Tensor, slot: torch.Tensor,
+             keep: torch.Tensor, flat_w: torch.Tensor, B: int, S: int,
+             k: int) -> torch.Tensor:
+    """Expert outputs (E, C, d) back into token order, weighted: (B, S, d)."""
+    E, C, d = expert_out.shape
+    flat_out = torch.cat([expert_out.reshape(E * C, d),
+                          torch.zeros((1, d), dtype=expert_out.dtype,
+                                      device=expert_out.device)], dim=0)
     y_tok = flat_out[slot] * (flat_w * keep.to(flat_w.dtype))[:, None]
-    y = sh.reshape(y_tok, T, k, d).sum(dim=1) if k > 1 else y_tok
-    return sh.reshape(y, B, S, d), aux
+    y = y_tok.reshape(B * S, k, d).sum(dim=1) if k > 1 else y_tok
+    return y.reshape(B, S, d)
+
+
+def moe_scatter(params, cfg: ModelConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity scatter/gather path.  x: (B, S, d) -> (y, aux).
+
+    On DTensors the dispatch (router, stable top-k, slot scan, the scatter
+    into the (E, C, d) buffer) and the combine run on gathered replicas
+    (``sharding.apply.on_replicas``): the capacity is shared by every
+    token of the batch, so no split of the batch keeps them exact.  The
+    experts run on the weights' own shards
+    (``sharding.apply.experts_on_shards``): E over the model axis where
+    the expert count divides it (llama4), else each expert's hidden dim
+    (granite), so each rank does 1/model of the experts' work, as the
+    reference's GSPMD partition does."""
+    B, S, _ = x.shape
+    k = cfg.experts_per_token
+    if not sh.is_dtensor(x):
+        expert_in, slot, keep, flat_w, aux = _dispatch(params, cfg, x)
+        return _combine(_expert_ffn(params["experts"], expert_in), slot,
+                        keep, flat_w, B, S, k), aux
+    expert_in, slot, keep, flat_w, aux = sh.on_replicas(
+        lambda r, h: _dispatch({"router": r}, cfg, h), params["router"], x)
+    expert_out = sh.experts_on_shards(_expert_ffn, params["experts"],
+                                      expert_in)
+    y = sh.on_replicas(lambda *a: _combine(*a, B, S, k), expert_out, slot,
+                       keep, flat_w)
+    return y, aux
 
 
 def moe_ffn(params, cfg: ModelConfig, x: torch.Tensor,
-            dispatch: str = "scatter", act=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            dispatch: str = "scatter") -> Tuple[torch.Tensor, torch.Tensor]:
     """``"dense"`` selects ``moe_dense``; anything else the scatter path,
-    as in the reference.  On DTensors either runs on gathered replicas of
-    the tokens and the moe weights (``sharding.apply.on_replicas``): the
-    scatter's capacity is shared by every token of the batch, so no split
-    of the batch keeps it exact (the reference's GSPMD partitions the
-    scatter itself; the port's sharded moe is replicated work)."""
+    as in the reference.  On DTensors the scatter path runs its dispatch
+    and combine on gathered replicas and its experts on the weights'
+    shards (``moe_scatter``); the dense path, every expert on every
+    token, runs whole on replicas (``sharding.apply.on_replicas``: every
+    rank does all of its work).  The moe blocks take their layout from
+    the weights, not from the activation map."""
     if dispatch == "dense":
         return sh.on_replicas(lambda p, h: moe_dense(p, cfg, h), params, x)
-    return sh.on_replicas(lambda p, h: moe_scatter(p, cfg, h, act=act),
-                          params, x)
+    return moe_scatter(params, cfg, x)

@@ -36,6 +36,7 @@ from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.models import layers as L
 from repro_torch.models import module as m
 from repro_torch.sharding import apply as sh
+from repro_torch.utils.op_stats import recurrence
 
 DECAY_RANK = 64
 
@@ -66,11 +67,23 @@ def _mix(x, xx, mu):
     return x + (xx - x) * mu.to(x.dtype)
 
 
-def _decay(params, xw: torch.Tensor) -> torch.Tensor:
-    """Data-dependent decay in (0,1), f32.  xw: (..., d) mixed input."""
+def _decay_local(xw, a, b, w0):
     dt = xw.dtype
-    lo = torch.tanh(xw @ params["decay_a"].to(dt)) @ params["decay_b"].to(dt)
-    return torch.exp(-torch.exp(params["decay_w0"] + lo.to(torch.float32)))
+    lo = torch.tanh(xw @ a.to(dt)) @ b.to(dt)
+    return torch.exp(-torch.exp(w0 + lo.to(torch.float32)))
+
+
+def _decay(params, xw: torch.Tensor) -> torch.Tensor:
+    """Data-dependent decay in (0,1), f32.  xw: (..., d) mixed input,
+    batch first.  On DTensors each rank runs its batch shard with the
+    small low-rank pair gathered whole (``sharding.apply.split_map``):
+    DTensor's own propagation splits the rank dim over the idle model
+    axis, and on the multi-pod mesh the backward of that layout fails in
+    its sharding propagation."""
+    return sh.split_map(_decay_local, (xw, params["decay_a"],
+                                       params["decay_b"],
+                                       params["decay_w0"]),
+                        [(0, None)] + [(None, None)] * 3, [(0, None)])
 
 
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, H: int,
@@ -96,24 +109,38 @@ def _wkv_inputs(params, cfg: ModelConfig, x: torch.Tensor, xx: torch.Tensor):
     return r, k, v, w, g
 
 
-def _shift(x: torch.Tensor) -> torch.Tensor:
-    """Token shift: x[:, t-1], zeros at t = 0.  x: (B, S, d)."""
+def _shift_local(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """Token shift: x[:, t-1], zeros at t = 0.  x: (B, S, d).  On DTensors
+    each rank shifts its batch shard (torch 2.11's DTensor cannot pad a
+    dim that two mesh axes split)."""
+    return sh.split_map(_shift_local, (x,), [(0, None)], [(0, None)])
 
 
 def wkv_scan(r, k, v, w, u, S0):
     """The reference's WKV recurrence, differentiable.  r, k, v, w:
     (B, S, H, D); u: (H, D); S0: (B, H, D, D).  Returns (y (B, S, H, D)
-    f32, S_final), a loop over t in f32 as the reference's ``lax.scan``."""
-    rf, kf, vf, wf = (a.to(torch.float32) for a in (r, k, v, w))
+    f32, S_final), a loop over t in f32 as the reference's ``lax.scan``.
+    The steps are taken apart by one ``unbind`` a tensor, whose backward is
+    one ``stack``: indexing step t would make a zero-filled (B, S, H, D)
+    gradient for every step, S² work in all."""
+    rf, kf, vf, wf = (a.to(torch.float32).unbind(1) for a in (r, k, v, w))
     S = S0
     ys = []
-    for t in range(r.shape[1]):
-        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B,H,D,D)
-        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t],
+    for rt, kt, vt, wt in zip(rf, kf, vf, wf):
+        kv = kt[:, :, :, None] * vt[:, :, None, :]                 # (B,H,D,D)
+        ys.append(torch.einsum("bhi,bhij->bhj", rt,
                                S + u[..., :, None] * kv))
-        S = wf[:, t, :, :, None] * S + kv
+        S = wt[:, :, :, None] * S + kv
     return torch.stack(ys, dim=1), S
+
+
+# the scan as the dry run counts it (``utils.op_stats.recurrence``): two
+# short lengths extended in S; elsewhere ``wkv_scan`` itself
+WKV_SCAN = recurrence(wkv_scan, time_args=(0, 1, 2, 3), time_outs=(0,))
 
 
 def time_mix_full(params, cfg: ModelConfig, x: torch.Tensor,
@@ -139,7 +166,7 @@ def time_mix_full(params, cfg: ModelConfig, x: torch.Tensor,
         S0 = torch.zeros((B, H, D, D), dtype=torch.float32, device=x.device)
         # independent along the batch and the heads (on DTensors each
         # rank runs its shards)
-        y, _ = sh.split_map(wkv_scan, (rh, kh, vh, wh, u, S0),
+        y, _ = sh.split_map(WKV_SCAN, (rh, kh, vh, wh, u, S0),
                             [(0, 2)] * 4 + [(None, 0), (0, 1)],
                             [(0, 2), (0, 1)])
     y = sh.reshape(y, B, S, d).to(x.dtype)

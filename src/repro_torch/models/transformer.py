@@ -194,8 +194,7 @@ def _ffn_full(p, cfg: ModelConfig, h: torch.Tensor,
         return rk.channel_mix_full(p["channel"], cfg, h), _zero(h)
     if cfg.num_experts:
         return moe_mod.moe_ffn(p["moe"], cfg, h,
-                               dispatch=opts["moe_dispatch"],
-                               act=opts["act_sharding"])
+                               dispatch=opts["moe_dispatch"])
     return L.mlp(p["mlp"], h), _zero(h)
 
 

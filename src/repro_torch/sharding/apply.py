@@ -19,7 +19,9 @@ through: ``reshape`` (gathers what a split cannot carry through a
 reshape), ``split_map`` (work independent along a batch and a head dim
 runs on each rank's shards), ``take_rows`` (an embedding lookup),
 ``on_replicas`` (work whose tokens share slots runs on gathered
-replicas), and ``grad_like`` (a param's gradient in the param's layout).
+replicas), ``experts_on_shards`` (the moe experts on their weights'
+shards), ``settle`` (a partial sum done where GSPMD would do it), and
+``grad_like`` (a param's gradient in the param's layout).
 Each is ``fn`` itself, or the identity, on plain tensors.
 """
 from __future__ import annotations
@@ -105,6 +107,22 @@ def constrain(x, act: Optional[dict], *entries):
         return _Layout.apply(x, want)
     if tuple(x.placements) == want:
         return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def settle(x):
+    """The DTensor ``x`` with its pending sums done (each ``Partial``
+    placement made ``Replicate``: an all-reduce), its gradient laid back
+    out as ``x``'s; the identity on a plain tensor or a settled one.
+    GSPMD sums a contraction's partial result where the next op needs it;
+    DTensor carries the ``Partial`` on, and its propagation of a product
+    of a ``Partial`` and a strided shard fails."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Layout.apply(x, want)
     return x.redistribute(x.device_mesh, want)
 
 
@@ -203,6 +221,71 @@ def on_replicas(fn, *trees):
     return pt_map(lambda t: DTensor.from_local(t, mesh, whole,
                                                run_check=False)
                   if isinstance(t, torch.Tensor) else t, out)
+
+
+class _SumShards(torch.autograd.Function):
+    """Each rank's local ``out`` as one DTensor laid out by ``placements``
+    (a ``Shard`` or a ``Partial`` on the split axes), made whole on every
+    rank (an all-gather or an all-reduce).  The gradient of a rank's part
+    is the whole gradient's own part: its chunk of a ``Shard`` dim, all
+    of it for a ``Partial`` (DTensor's ``from_local`` would hand a
+    ``Partial`` part a share of it)."""
+
+    @staticmethod
+    def forward(ctx, out, mesh, placements):
+        from torch.distributed.tensor import DTensor, Replicate
+        ctx.mesh = mesh
+        ctx.back = tuple(Replicate() if p.is_partial() else p
+                         for p in placements)
+        whole = (Replicate(),) * mesh.ndim
+        return DTensor.from_local(out, mesh, placements,
+                                  run_check=False).redistribute(mesh, whole)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.back).to_local(), None, None
+
+
+def experts_on_shards(fn, weights, x):
+    """``fn(weights, x)`` for stacked expert weights (leaves (E, ...):
+    ``w_gate``, ``w_up`` (E, d, ff), ``w_down`` (E, ff, d)) and a
+    replicated DTensor ``x`` (E, C, d), each rank on its own shard of the
+    experts' work, laid out as the weights are over the mesh's ``model``
+    axis: their E dim (expert parallel) or their hidden dim ff (each
+    expert's columns in, rows out).  Every other axis of the weights
+    (the FSDP split of d over data) is gathered, as GSPMD gathers it.
+    With E split, a rank runs its experts on their slots and the outputs
+    are gathered whole; with the hidden dim split, it runs every expert
+    on its columns and the partial outputs are summed.  The result is a
+    replicated DTensor (E, C, d)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    axis = names.index("model") if "model" in names else mesh.ndim - 1
+    split = weights["w_gate"].placements[axis]
+    ep = split == Shard(0)
+    local = {}
+    for name, w in weights.items():
+        want = tuple(p if i == axis else Replicate()
+                     for i, p in enumerate(w.placements))
+        if tuple(w.placements) != want:
+            w = w.redistribute(mesh, want)
+        local[name] = w.to_local(grad_placements=want)
+    whole = (Replicate(),) * mesh.ndim
+    if tuple(x.placements) != whole:
+        x = x.redistribute(mesh, whole)
+    if ep:
+        part = tuple(Shard(0) if i == axis else Replicate()
+                     for i in range(mesh.ndim))
+        xl = x.redistribute(mesh, part).to_local(grad_placements=part)
+    elif isinstance(split, Shard):
+        part = tuple(Partial() if i == axis else Replicate()
+                     for i in range(mesh.ndim))
+        xl = x.to_local(grad_placements=part)
+    else:                               # weights whole on the model axis
+        part = whole
+        xl = x.to_local(grad_placements=part)
+    return _SumShards.apply(fn(local, xl), mesh, part)
 
 
 def split_map(fn, args, dims, out_dims, ref: int = 0):

@@ -673,8 +673,9 @@ def test_cli_formats_and_rule_list(tmp_tree):
     assert doc["runs"][0]["results"][0]["ruleId"] == "rng-reuse"
     res = _run_cli(tmp_tree, "--list-rules")
     assert res.returncode == 0
+    from repro_torch.analysis.__main__ import IR_RULE_DESCRIPTIONS
     assert [ln.split()[0] for ln in res.stdout.splitlines()] == sorted(
-        r.name for r in tlint.all_rules())
+        r.name for r in tlint.all_rules()) + sorted(IR_RULE_DESCRIPTIONS)
 
 
 def test_repo_tree_is_clean_with_contracts_on_the_cpu():

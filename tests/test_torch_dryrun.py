@@ -304,3 +304,134 @@ def test_sharded_step_on_eight_ranks_matches_unsharded_and_the_fake_run(
     assert sum(v["count"] for v in fake["collectives"].values()) > 0
     assert fake["memory"]["argument_size_in_bytes"] == \
         real["memory"]["argument_size_in_bytes"]
+
+
+# -- the moe experts on their shards -----------------------------------------
+
+def _llama4():
+    # 16 experts: E splits over the model axis (expert parallel), as
+    # llama4-maverick's 128 over 16; the reduced granite's 4 do not, so
+    # its experts split their hidden dim, as granite's 40 over 16
+    return get_config("llama4-maverick-400b-a17b").reduced().replace(
+        num_experts=16)
+
+
+MOE_CFGS = {"granite": _granite, "llama4": _llama4}
+
+
+def _moe_program(cfg, mesh, drops):
+    """The dry run's train step and prefill of ``cfg`` on real tensors on
+    ``mesh``: (loss, params, logits, dropped routes per call)."""
+    from repro_torch.models import build_model, inputs as zin
+    from repro_torch.training import create_train_state
+    from repro_torch.utils.tree import tree_leaves
+    model = build_model(cfg, "cpu")
+    opts = D.make_opts("train", True)
+    state = create_train_state(model.init(torch.Generator().manual_seed(4)),
+                               D.optimizer(opts))
+    batch = zin.materialize(zin.train_specs(cfg, B, S_MOE), cfg, seed=5,
+                            device="cpu")
+    drops.clear()
+    fn, args = D.build_program(cfg, InputShape("debug", S_MOE, B, "train"),
+                               mesh, True, opts, "cpu", args=(state, batch))
+    new, met = fn(*args)
+    train_drops = list(drops)
+    params = model.init(torch.Generator().manual_seed(6))
+    pbatch = zin.materialize(zin.prefill_specs(cfg, B, S_MOE), cfg, seed=7,
+                             device="cpu")
+    drops.clear()
+    pfn, pargs = D.build_program(
+        cfg, InputShape("debug", S_MOE, B, "prefill"), mesh, True,
+        D.make_opts("prefill", True), "cpu", args=(params, pbatch))
+    logits = pfn(*pargs).full_tensor()
+    return (float(met["loss"].full_tensor()),
+            [t.full_tensor() for t in tree_leaves(new.params)], logits,
+            (train_drops, list(drops)))
+
+
+def _moe_rank(rank, world, device):
+    """One rank of eight on the debug mesh: the dry run's train step and
+    prefill of a reduced moe model on real tensors, its experts on their
+    shards, then again with the experts on gathered replicas (the
+    replicated dispatch every rank ran before); rank 0 holds loss,
+    params, logits and every layer's dropped routes."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import apply as sh
+    torch.manual_seed(0)
+    mesh = M.make_debug_mesh(device="cpu")
+    plain, drops = moe.dispatch_slots, []
+
+    def recorded(flat_e, E, C):
+        slot, keep = plain(flat_e, E, C)
+        drops.append(int((~keep).sum()))
+        return slot, keep
+
+    moe.dispatch_slots = recorded
+    on_shards, out = sh.experts_on_shards, {}
+    for name, make in MOE_CFGS.items():
+        sh.experts_on_shards = on_shards
+        loss, got, logits, got_drops = _moe_program(make(), mesh, drops)
+        sh.experts_on_shards = lambda fn, w, x: sh.on_replicas(fn, w, x)
+        wloss, want, wlogits, want_drops = _moe_program(make(), mesh, drops)
+        if rank != 0:
+            continue
+        scale = max(float(w.abs().max()) for w in want)
+        out[name] = {
+            "loss": loss, "want_loss": wloss,
+            "param_err": max(float((g - w).abs().max())
+                             for g, w in zip(got, want)) / scale,
+            "logit_err": float((logits - wlogits).abs().max()) / float(
+                wlogits.abs().max()),
+            "drops": got_drops, "want_drops": want_drops}
+    return out
+
+
+def test_moe_experts_on_shards_match_the_replicated_dispatch(tmp_path):
+    """granite (each expert's hidden dim over the model axis, the partial
+    outputs summed) and llama4 at f32 (E over the model axis, the outputs
+    gathered) on eight gloo ranks against the same programs with the
+    experts on gathered replicas, as every rank ran them before."""
+    o = M.spawn_ranks(_moe_rank, 8, "cpu", tmpdir=str(tmp_path),
+                      timeout_s=600)[0]
+    assert sorted(o) == sorted(MOE_CFGS)
+    # the capacity bites somewhere, so the dispatches compared drop routes
+    assert sum(sum(r["drops"][1]) for r in o.values()) > 0, o
+    for name, r in o.items():
+        assert abs(r["loss"] - r["want_loss"]) <= LOSS_RTOL * abs(
+            r["want_loss"]), (name, r)
+        assert r["param_err"] <= PARAM_RTOL, (name, r)
+        assert r["logit_err"] <= LOGIT_RTOL, (name, r)
+        assert r["drops"] == r["want_drops"], (name, r)
+
+
+@pytest.mark.parametrize("name", sorted(MOE_CFGS))
+def test_moe_expert_flops_split_over_the_model_axis(name, monkeypatch):
+    """Rank 0's FLOPs in the expert FFN on the fake debug mesh are the
+    replicated (unsharded) count over the model axis's size."""
+    from repro_torch.models import build_model, inputs as zin, moe
+    from repro_torch.training.step import make_prefill_step
+    from repro_torch.utils.op_stats import ProgramStats
+    plain, flops = moe._expert_ffn, []
+
+    def counted(wp, x):
+        with ProgramStats() as st:
+            y = plain(wp, x)
+        flops.append(st.flops)
+        return y
+
+    monkeypatch.setattr(moe, "_expert_ffn", counted)
+    cfg = MOE_CFGS[name]()
+    with M.fake_world(8):
+        mesh = M.make_debug_mesh(device="cpu")
+        D.measure(cfg, InputShape("debug", S_MOE, B, "prefill"), mesh, True,
+                  D.make_opts("prefill", True), "cpu")
+    sharded, flops[:] = list(flops), []
+    model = build_model(cfg, "cpu")
+    with torch.no_grad():
+        make_prefill_step(model)(
+            model.init(torch.Generator().manual_seed(0)),
+            zin.materialize(zin.prefill_specs(cfg, B, S_MOE), cfg, seed=1,
+                            device="cpu"))
+    assert len(sharded) == len(flops) == cfg.num_layers
+    assert all(s * 2 == f > 0 for s, f in zip(sharded, flops)), (sharded,
+                                                                 flops)
