@@ -54,6 +54,7 @@ from repro_torch.kernels.fused_cnn.ops import (ForwardPolicy,
                                                make_stacked_epoch_fn,
                                                make_stacked_eval_forward,
                                                resolve_train_step)
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_clone, tree_leaves, tree_map
 
 __all__ = ["RoundStats", "DeviceSimCarry", "DeviceRoundMetrics",
@@ -407,6 +408,13 @@ def build_device_round(*, scheme: Any, local_epochs: int,
     a time.  Anything else raises a ``TypeError``.
     The round reads nothing back to the host: no ``.item()``, no boolean
     indexing, no tensor made from host data.
+
+    Host spans (``utils.trace``; the loop is host-paced): ``round``, and
+    inside it ``round.schedule`` (fading, selection), one ``round.epoch``
+    an epoch (the fleet's move, the outage, the gather) holding
+    ``round.train`` and ``round.probe``, then ``round.final`` (the final
+    upload), ``round.aggregate`` and ``round.eval`` (the eval and the
+    round's metrics).
     """
     epoch_all, eval_k = _resolve_device_round_fns(forward, lr)
     scheme = get_scheme(scheme)
@@ -428,6 +436,10 @@ def build_device_round(*, scheme: Any, local_epochs: int,
 
     @torch.no_grad()
     def round_fn(carry: DeviceSimCarry, round_t: int, stream, sim, cfg):
+        with trace.span("round"):
+            return _round(carry, round_t, stream, sim, cfg)
+
+    def _round(carry: DeviceSimCarry, round_t: int, stream, sim, cfg):
         params, fleet = carry.params, carry.fleet
         S, N = fleet.k_db.shape
         C = cfg["b"].shape[0]
@@ -446,20 +458,23 @@ def build_device_round(*, scheme: Any, local_epochs: int,
             return torch.gather(t, 1, sel)
 
         # -- schedule (Alg. 1 l. 3-5): fresh fading, greedy selection ------
-        fleet = fleet_resample_fading(
-            fleet, stream.fleet_uniform(N, *p.k_db_range))
-        rates0 = rates(fleet)
-        sel, mode_sl, valid, n_taken, tt_fl, tt_sl = scheme.selection_policy(
-            rates0, _rep(sim["flops"], C), _rep(sim["samples"], C), b=b,
-            tau_max=tau_max, k_select=K, model_bytes=eff_model_bytes,
-            ue_model_bytes=eff_ue_bytes, local_epochs=local_epochs,
-            max_sl=max_sl, act_bytes_per_sample=act_bytes_per_sample)
-        train_time = torch.where(valid, torch.where(mode_sl, pick(tt_sl),
-                                                    pick(tt_fl)), 1e9)
-        payload_bits = torch.where(mode_sl, eff_ue_bytes,
-                                   eff_model_bytes) * 8.0      # eq. (15) m_i
-        tau_extra0 = torch.clamp_min(b - 1.0, 0.0)[:, None] * payload_bits \
-            / torch.clamp_min(pick(rates0), 1e-9)               # eq. (14)
+        with trace.span("round.schedule"):
+            fleet = fleet_resample_fading(
+                fleet, stream.fleet_uniform(N, *p.k_db_range))
+            rates0 = rates(fleet)
+            sel, mode_sl, valid, n_taken, tt_fl, tt_sl = \
+                scheme.selection_policy(
+                    rates0, _rep(sim["flops"], C), _rep(sim["samples"], C),
+                    b=b, tau_max=tau_max, k_select=K,
+                    model_bytes=eff_model_bytes, ue_model_bytes=eff_ue_bytes,
+                    local_epochs=local_epochs, max_sl=max_sl,
+                    act_bytes_per_sample=act_bytes_per_sample)
+            train_time = torch.where(valid, torch.where(
+                mode_sl, pick(tt_sl), pick(tt_fl)), 1e9)
+            payload_bits = torch.where(mode_sl, eff_ue_bytes,
+                                       eff_model_bytes) * 8.0  # eq. (15) m_i
+            tau_extra0 = torch.clamp_min(b - 1.0, 0.0)[:, None] \
+                * payload_bits / torch.clamp_min(pick(rates0), 1e-9)  # (14)
 
         # -- local training: the G·K users of the group in lockstep --------
         stacked = tree_map(lambda a: _rep(a, K), params)        # (G·K, ...)
@@ -479,84 +494,94 @@ def build_device_round(*, scheme: Any, local_epochs: int,
         nsent = torch.zeros((G, K), dtype=torch.int32, device=dev)
         tau_extra = tau_extra0
         for e_t in range(1, local_epochs + 1):
-            fleet = fleet_move(fleet, p, speed_mps, epoch_seconds,
-                               stream.fleet_normal((N, 3)))
-            rate_e = pick(rates(fleet))
-            fleet, bad = fleet_outage_step(fleet, p,
-                                           stream.fleet_uniform(N))
-            out_e = pick(_rep(bad, C))
-            idx = (base[..., None]
-                   + stream.batch_indices(round_t, e_t, clen, nb)).reshape(-1)
-            xs = client_x.index_select(0, idx).reshape(
-                G * K, steps_per_epoch, batch_size, *xshape)
-            ys = client_y.index_select(0, idx).reshape(
-                G * K, steps_per_epoch, batch_size)
-            stacked = epoch_all(stacked, xs, ys)
-            if scheme.uses_probes:
-                sched = scheme.probe_schedule(e_t, local_epochs, b,
-                                              override=override)
-                tau = payload_bits / torch.clamp_min(rate_e, 1e-9)
-                ok, tau_extra = snapshot_decision(valid & sched[:, None],
-                                                  out_e, tau, tau_extra)
-                okf = ok.reshape(G * K)
-                if use_codec:
-                    q_new, s_new = _codec_encode(stacked, params,
-                                                 codec_block, codec_bits)
-                    snap = (torch.where(kx(okf, q_new), q_new, snap[0]),
-                            torch.where(kx(okf, s_new), s_new, snap[1]))
-                else:
-                    snap = tree_where_k(okf, stacked, snap)
-                has_snap = has_snap | ok
-                nsent = nsent + ok.to(torch.int32)
+            with trace.span("round.epoch"):
+                fleet = fleet_move(fleet, p, speed_mps, epoch_seconds,
+                                   stream.fleet_normal((N, 3)))
+                rate_e = pick(rates(fleet))
+                fleet, bad = fleet_outage_step(fleet, p,
+                                               stream.fleet_uniform(N))
+                out_e = pick(_rep(bad, C))
+                idx = (base[..., None] + stream.batch_indices(
+                    round_t, e_t, clen, nb)).reshape(-1)
+                xs = client_x.index_select(0, idx).reshape(
+                    G * K, steps_per_epoch, batch_size, *xshape)
+                ys = client_y.index_select(0, idx).reshape(
+                    G * K, steps_per_epoch, batch_size)
+                with trace.span("round.train"):
+                    stacked = epoch_all(stacked, xs, ys)
+                if scheme.uses_probes:
+                    with trace.span("round.probe"):
+                        sched = scheme.probe_schedule(e_t, local_epochs, b,
+                                                      override=override)
+                        tau = payload_bits / torch.clamp_min(rate_e, 1e-9)
+                        ok, tau_extra = snapshot_decision(
+                            valid & sched[:, None], out_e, tau, tau_extra)
+                        okf = ok.reshape(G * K)
+                        if use_codec:
+                            q_new, s_new = _codec_encode(
+                                stacked, params, codec_block, codec_bits)
+                            snap = (torch.where(kx(okf, q_new), q_new,
+                                                snap[0]),
+                                    torch.where(kx(okf, s_new), s_new,
+                                                snap[1]))
+                        else:
+                            snap = tree_where_k(okf, stacked, snap)
+                        has_snap = has_snap | ok
+                        nsent = nsent + ok.to(torch.int32)
 
         # -- final upload (Alg. 2 l. 14): no extra move ---------------------
-        rate_f = pick(rates(fleet))
-        fleet, bad_f = fleet_outage_step(fleet, p, stream.fleet_uniform(N))
-        tau_f = payload_bits / torch.clamp_min(rate_f, 1e-9)
-        fits = train_time + scheme.final_slack(tau_extra0) + tau_f \
-            <= tau_max[:, None]
-        arrived = valid & ~pick(_rep(bad_f, C)) & fits
+        with trace.span("round.final"):
+            rate_f = pick(rates(fleet))
+            fleet, bad_f = fleet_outage_step(fleet, p,
+                                             stream.fleet_uniform(N))
+            tau_f = payload_bits / torch.clamp_min(rate_f, 1e-9)
+            fits = train_time + scheme.final_slack(tau_extra0) + tau_f \
+                <= tau_max[:, None]
+            arrived = valid & ~pick(_rep(bad_f, C)) & fits
 
         # -- aggregation: the scheme's (K, ...) aggregate on every row ------
-        if use_codec:
-            snap = _codec_decode(snap[0], snap[1], stacked, params)
-
-        new_params, rescued = aggregate_rows(
-            params, _by_row(stacked, params), _by_row(snap, params),
-            has_snap, arrived, carry.delayed, carry.delayed_mask)
-        delayed_new = scheme.delayed_out(valid, arrived)
-        dropped = valid & ~arrived & ~rescued & ~delayed_new
-        if scheme.carries_delayed:
-            new_carry = DeviceSimCarry(new_params, fleet,
-                                       _by_row(stacked, params), delayed_new)
-        else:
-            new_carry = DeviceSimCarry(new_params, fleet, carry.delayed,
-                                       carry.delayed_mask)
+        with trace.span("round.aggregate"):
+            if use_codec:
+                snap = _codec_decode(snap[0], snap[1], stacked, params)
+            new_params, rescued = aggregate_rows(
+                params, _by_row(stacked, params), _by_row(snap, params),
+                has_snap, arrived, carry.delayed, carry.delayed_mask)
+            delayed_new = scheme.delayed_out(valid, arrived)
+            dropped = valid & ~arrived & ~rescued & ~delayed_new
+            if scheme.carries_delayed:
+                new_carry = DeviceSimCarry(new_params, fleet,
+                                           _by_row(stacked, params),
+                                           delayed_new)
+            else:
+                new_carry = DeviceSimCarry(new_params, fleet, carry.delayed,
+                                           carry.delayed_mask)
 
         # -- byte accounting + eval -----------------------------------------
         # (every sum over a row runs in _row_sum's fixed order)
-        events = nsent + arrived.to(torch.int32)
-        bytes_sent = _row_sum(torch.where(valid, payload_bits / 8.0 * events,
-                                          0.0))
-        act = act_bytes_per_sample * pick(_rep(sim["samples"], C))
-        bytes_sent = bytes_sent + _row_sum(
-            torch.where(valid & mode_sl & (events > 0), act, 0.0))
-        test_x = sim["test_x"] if C == 1 else _rep(sim["test_x"], C)
-        test_y = sim["test_y"] if C == 1 else _rep(sim["test_y"], C)
-        logits = eval_k(new_params, test_x)                     # (G, T, V)
-        top = torch.amax(logits, dim=-1, keepdim=True)
-        logz = torch.log(_row_sum(torch.exp(logits - top))) + top[..., 0]
-        gold = torch.gather(logits, -1, test_y[..., None])[..., 0]
-        n_test = test_y.shape[-1]
-        hits = (torch.argmax(logits, -1) == test_y).to(torch.float32)
-        count = lambda m: torch.sum(m.to(torch.int32), dim=1,  # noqa: E731
-                                    dtype=torch.int32)
-        metrics = DeviceRoundMetrics(
-            selected=n_taken, arrived=count(arrived),
-            rescued=count(rescued), delayed=count(delayed_new),
-            dropped=count(dropped), bytes_sent=bytes_sent.float(),
-            test_loss=_row_sum(logz - gold) / n_test,
-            test_acc=_row_sum(hits) / n_test)
+        with trace.span("round.eval"):
+            events = nsent + arrived.to(torch.int32)
+            bytes_sent = _row_sum(torch.where(
+                valid, payload_bits / 8.0 * events, 0.0))
+            act = act_bytes_per_sample * pick(_rep(sim["samples"], C))
+            bytes_sent = bytes_sent + _row_sum(
+                torch.where(valid & mode_sl & (events > 0), act, 0.0))
+            test_x = sim["test_x"] if C == 1 else _rep(sim["test_x"], C)
+            test_y = sim["test_y"] if C == 1 else _rep(sim["test_y"], C)
+            logits = eval_k(new_params, test_x)                 # (G, T, V)
+            top = torch.amax(logits, dim=-1, keepdim=True)
+            logz = torch.log(_row_sum(torch.exp(logits - top))) \
+                + top[..., 0]
+            gold = torch.gather(logits, -1, test_y[..., None])[..., 0]
+            n_test = test_y.shape[-1]
+            hits = (torch.argmax(logits, -1) == test_y).to(torch.float32)
+            count = lambda m: torch.sum(  # noqa: E731
+                m.to(torch.int32), dim=1, dtype=torch.int32)
+            metrics = DeviceRoundMetrics(
+                selected=n_taken, arrived=count(arrived),
+                rescued=count(rescued), delayed=count(delayed_new),
+                dropped=count(dropped), bytes_sent=bytes_sent.float(),
+                test_loss=_row_sum(logz - gold) / n_test,
+                test_acc=_row_sum(hits) / n_test)
         return new_carry, metrics
 
     return round_fn

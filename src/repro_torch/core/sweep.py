@@ -54,6 +54,7 @@ from repro_torch.core.streams import GroupStream, torch_stream
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_cnn.ops import ForwardPolicy
 from repro_torch.sharding.rules import sweep_rows
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 # fields of HSFLConfig a sweep varies per config column
@@ -291,7 +292,6 @@ class GroupResult:
     sims: Tuple[Tuple[int, str], ...]
     cfgs: Tuple[Dict[str, float], ...]
     metrics: Dict[str, np.ndarray]        # each (S, C, rounds)
-    compile_s: float = 0.0
     run_s: float = 0.0
     label: str = ""                       # scheme (+ "+codec")
     program_id: int = 0                   # same id: the same round program
@@ -319,9 +319,7 @@ class GroupResult:
 class SweepResult:
     groups: List[GroupResult]
     rounds: int
-    wall_s: float = 0.0
     n_programs: int = 0                   # distinct round programs
-    compile_overlap_s: float = 0.0        # no compile to hide: always 0
 
     @property
     def n_simulations(self) -> int:
@@ -389,50 +387,61 @@ def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
     docstring), or ``"auto"``: the default group when ``torch.distributed``
     is initialised with more than one rank, else one device.  ``timeit``
     runs each group a second time from its streams and reports that run's
-    ``run_s`` (this rank's).  There is no compile step, so ``compile_s``
-    and ``compile_overlap_s`` are 0.0, and ``overlap_compile`` (the
-    reference's background compile of the next group) is taken and has no
-    effect.  ``stream_factory(cfg, device)`` makes each simulation's
-    stream (``cfg.seed`` is the simulation's)."""
+    ``run_s`` (this rank's).  There is no compile step: ``overlap_compile``
+    (the reference's background compile of the next group) is taken and
+    has no effect.  ``stream_factory(cfg, device)`` makes each
+    simulation's stream (``cfg.seed`` is the simulation's).
+
+    Host spans (``utils.trace``): ``sweep.program`` (a new round program),
+    ``sweep.sim_arrays`` (the host data and its copy to the device),
+    ``sweep.group_inputs``, ``sweep.rounds`` (the round loop; each round's
+    spans inside it), ``sweep.read`` (the metrics' one read) and, over
+    ranks, ``sweep.gather``."""
     group_pg = _sweep_group(mesh)
     device = resolve_device(device)
     rounds = spec.base.rounds
-    t_all = time.time()
     programs: Dict[Tuple, Tuple[Callable, int]] = {}
     sims_data: Dict[Tuple, Dict] = {}
     out = []
     for group in compile_spec(spec, lower_discard=lower_discard):
         key = _program_key(group)
         if key not in programs:
-            programs[key] = (build_device_round(**_group_build_kwargs(group)),
-                             len(programs))
+            with trace.span("sweep.program"):
+                programs[key] = (
+                    build_device_round(**_group_build_kwargs(group)),
+                    len(programs))
         fn, pid = programs[key]
         n_sims = len(group.sims)
         lo, hi = (0, n_sims) if group_pg is None else sweep_rows(
             n_sims, dist.get_world_size(group_pg), dist.get_rank(group_pg))
         block = replace(group, sims=group.sims[lo:hi])
         if block.sims not in sims_data:
-            sims_data[block.sims] = _sim_tensors(_stack_sims(block), device)
+            with trace.span("sweep.sim_arrays"):
+                sims_data[block.sims] = _sim_tensors(_stack_sims(block),
+                                                     device)
         data = sims_data[block.sims]
         for _ in range(2 if timeit else 1):
-            carry, streams, cfg = _group_inputs(block, data, device,
-                                                stream_factory)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with trace.span("sweep.group_inputs"):
+                carry, streams, cfg = _group_inputs(block, data, device,
+                                                    stream_factory)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            carry, per_round = _scan_rounds(fn, carry, streams, data, cfg,
-                                            rounds)
-            allm = _stack_metrics(per_round)
-            metrics = _metrics_numpy(allm, hi - lo, len(group.cfgs))
+            with trace.span("sweep.rounds"):
+                carry, per_round = _scan_rounds(fn, carry, streams, data,
+                                                cfg, rounds)
+            with trace.span("sweep.read"):
+                allm = _stack_metrics(per_round)
+                metrics = _metrics_numpy(allm, hi - lo, len(group.cfgs))
             run_s = time.perf_counter() - t0
         params = carry.params
         if hi - lo < n_sims:
-            allm, params = _gather_rows(group_pg, allm, params)
-            metrics = _metrics_numpy(allm, n_sims, len(group.cfgs))
+            with trace.span("sweep.gather"):
+                allm, params = _gather_rows(group_pg, allm, params)
+                metrics = _metrics_numpy(allm, n_sims, len(group.cfgs))
         out.append(GroupResult(
             scheme=group.scheme, sims=group.sims, cfgs=group.cfgs,
-            metrics=metrics,
-            compile_s=0.0, run_s=round(run_s, 3),
+            metrics=metrics, run_s=round(run_s, 3),
             label=group.label or group.scheme, program_id=pid,
             final_params=params))
         if verbose and (group_pg is None or dist.get_rank(group_pg) == 0):
@@ -440,9 +449,7 @@ def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
             print(f"[sweep/{out[-1].label}] sims={n_sims} "
                   f"cfgs={len(group.cfgs)} rounds={rounds} "
                   f"run={out[-1].run_s:.2f}s final_acc={accs.mean():.4f}")
-    return SweepResult(groups=out, rounds=rounds,
-                       wall_s=round(time.time() - t_all, 3),
-                       n_programs=len(programs), compile_overlap_s=0.0)
+    return SweepResult(groups=out, rounds=rounds, n_programs=len(programs))
 
 
 def run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,

@@ -16,6 +16,13 @@ probabilities, as ``jax.lax.top_k`` does: ``torch.topk`` promises no order
 for ties, so the port takes the first k of a stable sort.  The aux loss is
 the Switch load-balance term ``E * sum_e f_e * P_e``.  The experts are
 plain products outside any kernel, in the reference as here.
+
+Spans (``utils.trace``) of the scatter path: ``moe.dispatch`` (with
+``moe.route``, the router and its top-k, inside it), ``moe.experts`` and
+``moe.combine``, device spans on plain CUDA tensors and host spans on
+DTensors; counters ``moe.routes`` (T·k routed tokens) and
+``moe.dropped_routes`` (those past their expert's capacity, summed on the
+device while a recording is open).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import module as m
 from repro_torch.sharding import apply as sh
+from repro_torch.utils import trace
 
 CAPACITY_FACTOR = 1.25
 
@@ -122,18 +130,24 @@ def dispatch_slots(flat_e: torch.Tensor, E: int, C: int
     return slot, keep
 
 
-def _dispatch(params, cfg: ModelConfig, x: torch.Tensor):
+def _dispatch(params, cfg: ModelConfig, x: torch.Tensor, device=False):
     """Router, top-k and capacity slots.  x: (B, S, d) -> (expert_in
-    (E, C, d), slot (T·k,), keep (T·k,), flat_w (T·k,), aux)."""
+    (E, C, d), slot (T·k,), keep (T·k,), flat_w (T·k,), aux).  ``device``
+    is the ``moe.route`` span's (``utils.trace.span``): False on gathered
+    replicas, a host span."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.experts_per_token
     C = capacity(T, cfg)
     x2d = x.reshape(T, d)
-    top_w, top_e, aux = _route(params, cfg, x2d)
+    with trace.span("moe.route", device=device):
+        top_w, top_e, aux = _route(params, cfg, x2d)
     flat_e = top_e.reshape(T * k)
     flat_w = top_w.reshape(T * k)
     slot, keep = dispatch_slots(flat_e, E, C)
+    trace.count("moe.routes", T * k)
+    if trace.active():
+        trace.count("moe.dropped_routes", torch.sum(~keep))
     src = torch.repeat_interleave(x2d, k, dim=0) if k > 1 else x2d
     # kept tokens have distinct slots; only the waste row E*C takes
     # several writes, and it is thrown away
@@ -171,15 +185,23 @@ def moe_scatter(params, cfg: ModelConfig, x: torch.Tensor
     B, S, _ = x.shape
     k = cfg.experts_per_token
     if not sh.is_dtensor(x):
-        expert_in, slot, keep, flat_w, aux = _dispatch(params, cfg, x)
-        return _combine(_expert_ffn(params["experts"], expert_in), slot,
-                        keep, flat_w, B, S, k), aux
-    expert_in, slot, keep, flat_w, aux = sh.on_replicas(
-        lambda r, h: _dispatch({"router": r}, cfg, h), params["router"], x)
-    expert_out = sh.experts_on_shards(_expert_ffn, params["experts"],
-                                      expert_in)
-    y = sh.on_replicas(lambda *a: _combine(*a, B, S, k), expert_out, slot,
-                       keep, flat_w)
+        with trace.span("moe.dispatch", device=x):
+            expert_in, slot, keep, flat_w, aux = _dispatch(params, cfg, x,
+                                                           device=x)
+        with trace.span("moe.experts", device=x):
+            expert_out = _expert_ffn(params["experts"], expert_in)
+        with trace.span("moe.combine", device=x):
+            return _combine(expert_out, slot, keep, flat_w, B, S, k), aux
+    with trace.span("moe.dispatch"):
+        expert_in, slot, keep, flat_w, aux = sh.on_replicas(
+            lambda r, h: _dispatch({"router": r}, cfg, h), params["router"],
+            x)
+    with trace.span("moe.experts"):
+        expert_out = sh.experts_on_shards(_expert_ffn, params["experts"],
+                                          expert_in)
+    with trace.span("moe.combine"):
+        y = sh.on_replicas(lambda *a: _combine(*a, B, S, k), expert_out,
+                           slot, keep, flat_w)
     return y, aux
 
 

@@ -42,6 +42,10 @@ M-RoPE ``positions`` (B, 3, S).  ``opts`` takes the reference's keys:
 Remat changes no value: the recomputed ops are the same ops on the same
 inputs.
 
+Spans (``utils.trace``, device spans on plain CUDA tensors):
+``model.embed``, each layer's ``layer.attention`` (the mixer) and
+``layer.ffn``, and ``model.head`` (the final norm and the logits).
+
 DTensor programs: the bodies make some tensors themselves (rope angles,
 masks, positions, ``torch.arange``, zeros); the caller runs a DTensor
 program under ``torch.distributed.tensor.experimental.
@@ -66,6 +70,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.rope import text_positions
 from repro_torch.sharding.apply import constrain, grad_like
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_map
 
 DEFAULT_OPTS = {"impl": "xla", "wkv_impl": "xla",
@@ -205,14 +210,16 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 def _layer_full(p, cfg: ModelConfig, x: torch.Tensor, positions, opts):
     act = opts["act_sharding"]
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    with trace.span("layer.attention", device=h):
+        a = _mixer_full(p, cfg, h, positions, opts)
     # the residual after the mixer takes the layer's canonical layout too:
     # GSPMD carries it there from the constraints around it, DTensor needs
     # it stated (else its Partial sums reach the ffn in layouts its matmuls
     # cannot take)
-    x = constrain(x + _mixer_full(p, cfg, h, positions, opts), act, "B",
-                  None, None)
+    x = constrain(x + a, act, "B", None, None)
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    y, aux = _ffn_full(p, cfg, h, opts)
+    with trace.span("layer.ffn", device=h):
+        y, aux = _ffn_full(p, cfg, h, opts)
     return constrain(x + y, act, "B", None, None), aux
 
 
@@ -241,7 +248,8 @@ def forward_full(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
     (B, S, d) in place of the logits with ``return_hidden``."""
     opts = _opts(opts)
     dtype = m.dtype_of(cfg.dtype)
-    x = embed_inputs(params, cfg, inputs, dtype)
+    with trace.span("model.embed", device=inputs.get("tokens")):
+        x = embed_inputs(params, cfg, inputs, dtype)
     x = constrain(x, opts["act_sharding"], "B", None, None)
     B, S = x.shape[:2]
     positions = inputs.get("positions")
@@ -253,11 +261,12 @@ def forward_full(params, cfg: ModelConfig, inputs: Dict[str, torch.Tensor],
     for p in unstack(params["layers"], cfg.num_layers):
         x, aux = body(p, cfg, x, positions, opts)
         auxs.append(aux)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.sum(torch.stack(auxs))
-    if opts.get("return_hidden"):
-        return x, aux
-    return L.lm_logits(params["head"], params.get("embed"), cfg, x), aux
+    with trace.span("model.head", device=x):
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        aux = torch.sum(torch.stack(auxs))
+        if opts.get("return_hidden"):
+            return x, aux
+        return L.lm_logits(params["head"], params.get("embed"), cfg, x), aux
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch.optim.sgd import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.sharding.apply import is_dtensor, like
 from repro_torch.training.loss import cross_entropy, fused_head_cross_entropy
 from repro_torch.training.train_state import TrainState
+from repro_torch.utils import trace
 from repro_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -89,11 +90,13 @@ def make_train_step(model: Model, optimizer: Optimizer,
 def make_prefill_step(model: Model, opts: Optional[dict] = None) -> Callable:
     """Forward-only step (inference prefill / encoder encode).  ``batch``
     is ``models.inputs``' prefill structure: ``tokens``; ``embeds`` for
-    audio; ``patch_embeds`` and ``positions`` for vlm."""
+    audio; ``patch_embeds`` and ``positions`` for vlm.  Each call is one
+    ``prefill.step`` span (``utils.trace``), on the card a device span."""
 
     @torch.no_grad()
     def step(params, batch: Dict[str, Any]):
-        logits, _ = model.forward(params, batch, opts)
+        with trace.span("prefill.step", device=batch.get("tokens")):
+            logits, _ = model.forward(params, batch, opts)
         return logits
 
     return step

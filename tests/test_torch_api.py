@@ -203,7 +203,6 @@ def test_from_spec_refusal_and_overlap_compile_match_the_reference():
     ex = Experiment(tiny(rounds=1)).with_scheme("opt", b=2.0)
     on = ex.run(engine="sweep", device="cpu", overlap_compile=True)
     off = ex.run(engine="sweep", device="cpu", overlap_compile=False)
-    assert on.compile_overlap_s == off.compile_overlap_s == 0.0
     for key in on.groups[0].metrics:
         np.testing.assert_array_equal(on.groups[0].metrics[key],
                                       off.groups[0].metrics[key])

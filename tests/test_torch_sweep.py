@@ -164,8 +164,6 @@ def test_codec_panel_is_two_programs(codec_panel):
     assert [g.program_id for g in res.groups] == [0, 1, 0]
     assert [g.label for g in res.groups] == ["opt+codec", "async+codec",
                                              "discard+codec"]
-    assert res.compile_overlap_s == 0.0
-    assert all(g.compile_s == 0.0 for g in res.groups)
     assert all(g.metrics["test_acc"].shape == (1, 1, 3) for g in res.groups)
 
 
@@ -263,7 +261,6 @@ def test_run_sweep_takes_overlap_compile(overlap):
     with pytest.warns(DeprecationWarning):
         shim = tsweep.run_sweep(spec, device="cpu", overlap_compile=overlap)
     for res in (got, shim):
-        assert res.compile_overlap_s == 0.0
         for key in want.groups[0].metrics:
             np.testing.assert_array_equal(res.groups[0].metrics[key],
                                           want.groups[0].metrics[key])
