@@ -35,7 +35,9 @@ not depend on their group, so the gathered result is the unsharded one.
 from __future__ import annotations
 
 import itertools
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -161,21 +163,64 @@ def compile_spec(spec: SweepSpec,
 # engine
 # ---------------------------------------------------------------------------
 
+_POOL: ThreadPoolExecutor | None = None
+
+
+def _pool() -> ThreadPoolExecutor:
+    """The process's pool for building simulations' arrays, one worker a
+    usable CPU: made once, and dropped in a forked child, whose copy of
+    it has no threads."""
+    global _POOL
+    if _POOL is None:
+        _POOL = ThreadPoolExecutor(len(os.sched_getaffinity(0)),
+                                   thread_name_prefix="sim_arrays")
+    return _POOL
+
+
+def _drop_pool() -> None:
+    global _POOL
+    _POOL = None
+
+
+os.register_at_fork(after_in_child=_drop_pool)
+
+
 def _stack_sims(group: CompiledGroup) -> Dict[str, np.ndarray]:
-    """Build + stack per-sim constant arrays, padded to a common length."""
-    per_sim = []
-    for seed, dist in group.sims:
-        cfg = replace(group.base, seed=seed, distribution=dist)
-        per_sim.append(build_sim_arrays(cfg))
+    """Build + stack per-sim constant arrays, padded to a common length.
+
+    Each simulation's arrays come from ``build_sim_arrays`` (looked up
+    here, so a wrapper of the module's attribute sees every call).  With
+    more than one simulation and more than one usable CPU the calls run
+    on ``_pool()``, min(simulations, CPUs) at once: numpy releases the
+    GIL inside the array operations they are made of.  The stacked
+    arrays are then written once, each simulation's slice by a worker.
+    Counters (from the calling thread): ``sweep.sims_built`` and
+    ``sweep.sims_built_concurrently``."""
+    cfgs = [replace(group.base, seed=seed, distribution=dist)
+            for seed, dist in group.sims]
+    concurrent = len(cfgs) > 1 and len(os.sched_getaffinity(0)) > 1
+    run = _pool().map if concurrent else map
+    per_sim = list(run(build_sim_arrays, cfgs))
     m = max(a["client_x"].shape[1] for a in per_sim)
-    for a in per_sim:
-        pad = m - a["client_x"].shape[1]
-        if pad:
-            a["client_x"] = np.pad(
-                a["client_x"],
-                ((0, 0), (0, pad)) + ((0, 0),) * (a["client_x"].ndim - 2))
-            a["client_y"] = np.pad(a["client_y"], ((0, 0), (0, pad)))
-    return {k: np.stack([a[k] for a in per_sim]) for k in per_sim[0]}
+    shapes = {k: v.shape for k, v in per_sim[0].items()}
+    for k in ("client_x", "client_y"):
+        shapes[k] = shapes[k][:1] + (m,) + shapes[k][2:]
+    out = {k: np.empty((len(per_sim),) + shapes[k], v.dtype)
+           for k, v in per_sim[0].items()}
+
+    def fill(i: int) -> None:
+        for k, v in per_sim[i].items():
+            dst = out[k][i]
+            if v.shape != dst.shape:          # clients shorter than m
+                dst[:, v.shape[1]:] = 0
+                dst = dst[:, :v.shape[1]]
+            dst[...] = v
+
+    list(run(fill, range(len(per_sim))))
+    trace.count("sweep.sims_built", len(cfgs))
+    trace.count("sweep.sims_built_concurrently", len(cfgs) if concurrent
+                else 0)
+    return out
 
 
 def _sim_tensors(arrays: Dict[str, np.ndarray], device) -> Dict:
@@ -396,7 +441,9 @@ def _run_sweep(spec: SweepSpec, mesh: Any = "auto", verbose: bool = False,
     ``sweep.sim_arrays`` (the host data and its copy to the device),
     ``sweep.group_inputs``, ``sweep.rounds`` (the round loop; each round's
     spans inside it), ``sweep.read`` (the metrics' one read) and, over
-    ranks, ``sweep.gather``."""
+    ranks, ``sweep.gather``.  Counters: ``sweep.sims_built`` (the
+    simulations whose arrays a group built) and
+    ``sweep.sims_built_concurrently`` (those built on the pool)."""
     group_pg = _sweep_group(mesh)
     device = resolve_device(device)
     rounds = spec.base.rounds

@@ -1,17 +1,27 @@
-"""Synthetic datasets (numpy; a copy of ``repro/data/synthetic.py``).
+"""Synthetic datasets (numpy; array-equal to ``repro/data/synthetic.py``).
 
 ``make_digits`` builds a 10-class image problem whose classes are
 deterministic smoothed prototype blobs + per-sample jitter/noise.
 ``make_token_stream`` builds LM token data with Zipfian unigrams + Markov
-bigram structure for the zoo's training.  The copy must stay array-equal
-to the reference for the same seed (``tests/test_torch_control.py``,
+bigram structure for the zoo's training.  Both must stay array-equal to
+the reference for the same seed (``tests/test_torch_control.py``,
 ``tests/test_torch_optim.py``).
+
+``make_digits`` draws what the reference draws, in its order, but as
+whole arrays: its n images' noise is one ``standard_normal((n, side,
+side))`` (a ``Generator`` keeps no state between draws, so that is the
+n per-image draws' numbers), each image's ``np.roll`` is a gather, and
+the sums run in f32 over the same contiguous (n, side, side, 1) array.
+It holds the GIL only between those array operations, so simulations
+can build their data on threads (``core/sweep._stack_sims``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
+from numpy.lib.stride_tricks import sliding_window_view
 
 
 @dataclass
@@ -31,25 +41,37 @@ def _smooth(img: np.ndarray, iters: int = 2) -> np.ndarray:
     return img
 
 
-def make_digits(n: int, seed: int = 0, side: int = 28,
-                num_classes: int = 10, noise: float = 0.8) -> Dataset:
-    rng = np.random.default_rng(seed)
+@lru_cache(maxsize=None)
+def _prototypes(side: int, num_classes: int) -> np.ndarray:
+    """The class shapes (C, side, side), fixed across sims; read-only."""
     protos = []
-    proto_rng = np.random.default_rng(1234)      # class shapes fixed across sims
+    proto_rng = np.random.default_rng(1234)
     for _ in range(num_classes):
         base = (proto_rng.random((side, side)) < 0.18).astype(np.float32)
         protos.append(_smooth(base, 4) * 3.0)
-    protos = np.stack(protos)                    # (C, side, side)
+    protos = np.stack(protos)
+    protos.setflags(write=False)
+    return protos
 
+
+def make_digits(n: int, seed: int = 0, side: int = 28,
+                num_classes: int = 10, noise: float = 0.8) -> Dataset:
+    rng = np.random.default_rng(seed)
+    protos = _prototypes(side, num_classes)
     y = rng.integers(0, num_classes, n)
     shifts = rng.integers(-3, 4, (n, 2))
-    xs = np.empty((n, side, side, 1), np.float32)
-    for i in range(n):
-        img = np.roll(protos[y[i]], tuple(shifts[i]), (0, 1))
-        img = img + rng.standard_normal((side, side)).astype(np.float32) * noise
-        xs[i, :, :, 0] = img
+    z = rng.standard_normal((n, side, side)).astype(np.float32)
+    z *= noise
+    # np.roll(p, (a, b), (0, 1)) is the window of p tiled 2x2 that starts
+    # at (-a mod side, -b mod side)
+    windows = sliding_window_view(np.tile(protos, (1, 2, 2)), (side, side),
+                                  axis=(1, 2))
+    xs = windows[y, -shifts[:, 0] % side, -shifts[:, 1] % side]
+    xs += z
+    xs = xs.reshape(n, side, side, 1)
     mean, std = xs.mean(), xs.std() + 1e-6
-    return Dataset(((xs - mean) / std).astype(np.float32), y.astype(np.int32))
+    return Dataset(((xs - mean) / std).astype(np.float32, copy=False),
+                   y.astype(np.int32))
 
 
 def make_token_stream(n_seqs: int, seq_len: int, vocab: int,

@@ -57,6 +57,18 @@ def test_data_copies_are_array_equal(seed):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 2, 7000])
+def test_make_digits_is_array_equal(n, seed):
+    """The port draws a set's noise as one array, the reference image by
+    image: the same images, labels and dtypes, up to the paper's 7000."""
+    a, b = jsyn.make_digits(n, seed=seed), tsyn.make_digits(n, seed=seed)
+    assert (b.x.dtype, b.y.dtype) == (a.x.dtype, a.y.dtype)
+    assert b.x.shape == a.x.shape == (n, 28, 28, 1)
+    np.testing.assert_array_equal(a.x, b.x)
+    np.testing.assert_array_equal(a.y, b.y)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
 def test_fleet_stream_is_array_equal(seed):
     fa, fb = jchan.UAVFleet(12, seed=seed), tchan.UAVFleet(12, seed=seed)
     for _ in range(4):

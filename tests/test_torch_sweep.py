@@ -19,8 +19,15 @@ package's.
   bit for bit); the folded config axis equals each
   config run alone (counts exact, params within 1e-6: the twins' batched
   products may block differently for another cohort size).
+- ``_stack_sims`` builds a group's simulations on threads: its stacked
+  arrays equal serial ``build_sim_arrays(..., pad_len=m)`` calls stacked,
+  and the reference's at the paper's sizes; the counters
+  ``sweep.sims_built`` and ``sweep.sims_built_concurrently``.
 The facade's tests are in ``test_torch_api.py``.
 """
+import os
+from dataclasses import replace
+
 import numpy as np
 import pytest
 
@@ -33,6 +40,7 @@ from repro_torch.convert import params_to_numpy  # noqa: E402
 from repro_torch.core import sweep as tsweep  # noqa: E402
 from repro_torch.core.hsfl import HSFLConfig  # noqa: E402
 from repro_torch.core.streams import TorchStream  # noqa: E402
+from repro_torch.utils import trace  # noqa: E402
 from repro_torch.utils.tree import tree_map  # noqa: E402
 from test_torch_device_round import replay_factory  # noqa: E402
 
@@ -264,3 +272,66 @@ def test_run_sweep_takes_overlap_compile(overlap):
         for key in want.groups[0].metrics:
             np.testing.assert_array_equal(res.groups[0].metrics[key],
                                           want.groups[0].metrics[key])
+
+
+# -- the group's simulation arrays ---------------------------------------------
+
+def stacked_serially(build, group, m):
+    """Each simulation's ``build(cfg, pad_len=m)``, one after another,
+    stacked."""
+    per_sim = [build(replace(group.base, seed=seed, distribution=dist),
+                     pad_len=m)
+               for seed, dist in group.sims]
+    return {k: np.stack([a[k] for a in per_sim]) for k in per_sim[0]}
+
+
+def assert_arrays_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dist", ["noniid", "imbalanced"])
+def test_stack_sims_equals_the_serial_build(dist):
+    """Clients' lengths differ within and across simulations, so the
+    padding to the group's longest client engages."""
+    spec = tsweep.SweepSpec(base=tiny(distribution=dist), seeds=(0, 1, 2, 3),
+                            b=(1.0, 2.0))
+    group = tsweep.compile_spec(spec)[0]
+    with trace.record() as rec:
+        got = tsweep._stack_sims(group)
+    lens = got["client_len"]
+    m = got["client_x"].shape[2]
+    assert m == lens.max() and len(np.unique(lens)) > 1
+    assert_arrays_equal(got, stacked_serially(tsweep.build_sim_arrays,
+                                              group, m))
+    on_pool = 4 if len(os.sched_getaffinity(0)) > 1 else 0
+    assert rec.counters == {"sweep.sims_built": 4,
+                            "sweep.sims_built_concurrently": on_pool}
+
+
+def test_one_simulation_is_built_in_the_calling_thread(monkeypatch):
+    group = tsweep.compile_spec(tsweep.SweepSpec(base=tiny(), seeds=(5,)))[0]
+    monkeypatch.setattr(tsweep, "_pool", None)      # a pool call would raise
+    with trace.record() as rec:
+        got = tsweep._stack_sims(group)
+    assert rec.counters == {"sweep.sims_built": 1,
+                            "sweep.sims_built_concurrently": 0}
+    assert_arrays_equal(got, stacked_serially(
+        tsweep.build_sim_arrays, group, got["client_x"].shape[2]))
+
+
+@pytest.mark.parametrize("dist", ["iid", "noniid", "imbalanced"])
+def test_stack_sims_equals_the_reference_at_the_papers_size(dist):
+    """30 UAVs, 6000 training and 1000 test images a simulation."""
+    cfg = HSFLConfig(distribution=dist)
+    assert (cfg.n_uavs, cfg.n_train, cfg.n_test) == (30, 6000, 1000)
+    group = tsweep.compile_spec(tsweep.SweepSpec(base=cfg,
+                                                 seeds=(7, 8, 9)))[0]
+    got = tsweep._stack_sims(group)
+    m = got["client_x"].shape[2]
+    jgroup = jsweep.compile_spec(jsweep.SweepSpec(
+        base=jhsfl.HSFLConfig(distribution=dist), seeds=(7, 8, 9)))[0]
+    assert_arrays_equal(got, stacked_serially(jhsfl.build_sim_arrays,
+                                              jgroup, m))
