@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. card: name and power limit from nvidia-smi, torch and CUDA versions.
    TF32 is switched off for matmuls and cuDNN, so every f32 product on the
    card (kernels and plain twins alike) runs in full f32;
-2. build: the fused-CNN, delta-codec, flash-attention and WKV6 kernels
-   from the sources in this checkout, one nvcc each, in parallel (sm_90a);
+2. build: the fused-CNN, delta-codec, flash-attention, WKV6 and moe
+   dispatch kernels from the sources in this checkout, one nvcc each, in
+   parallel (sm_90a);
    the seconds it took, and each kernel's registers and spills;
 3. kernels vs their plain PyTorch twins on the card.  Blocked fused CNN:
    the main path's shapes (K=10 users, batch 10, both conv layers) at f32
@@ -52,7 +53,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    attention at hubert-xlarge's (B=2, 16 q and 16 kv heads, D=80, S=1500
    frames, non-causal), each timed beside its twin, its bound and, for
    attention, ``scaled_dot_product_attention`` (a yardstick only), with
-   both attentions' TFLOP/s; (b) ``make_prefill_step`` on Llama-3.2-1B as
+   both attentions' TFLOP/s; the moe dispatch kernels (slots, scatter,
+   combine) against the plain scatter path at granite-prefill-chat's
+   batch (T 18432, top-8 of 40 experts, d 1536, skewed routes that drop)
+   and a small ragged shape at k = 1, f32 and bf16 (slots, keep and
+   buffer bit for bit, the combine bit for bit to its twin), each timed
+   at the cell's shape beside its byte bound and the plain version;
+   (b) ``make_prefill_step`` on Llama-3.2-1B as
    configured and on RWKV6-7B at full width with 4 of its 32 layers, B=2
    x 2048-token prompts, counts reset just before: one kernel launch per
    layer; (c) the kernel path against the cache path (the token loop of
@@ -65,7 +72,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    flash attention against its twin at their shapes (groups of 3, 5 and 6;
    hymba's odd B·H) with the other 8a cases; (b) the prefill at B=2 x
    2048 (hubert: 1500 frames) from ``models.inputs.materialize``, counts
-   set to 0 just before: one flash launch per layer; ms, prompt tokens/s,
+   set to 0 just before: one flash launch per layer and, on granite, one
+   call of each moe dispatch wrapper per layer; ms, prompt tokens/s,
    busy share and top device ops, granite's scatter-dropped share and
    dense-dispatch ms, hymba's mamba-loop share; (c) the kernel path
    against the cache path at 256 text tokens (granite under the dense
@@ -108,7 +116,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    family of ``ARCH_IDS`` reduced at f32: one AdamW step on the card
    against the CPU (loss 1e-5, params 1e-4 of the largest); (e) the
    three example twins as subprocesses (``uav_fl_sim --rounds 2``).  No
-   zoo kernel may launch in any training step of the phase;
+   zoo or moe dispatch kernel may launch in any training step of the
+   phase;
 11. ranks on the card (``launch.mesh.spawn_ranks``; ranks that share the
    card use gloo, the backend named in every line).  (a) OpportunisticSync
    (``core.opportunistic_sync.make_opp_sync_round``) with 4 pods, one rank
@@ -164,11 +173,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    walker's peak of that same round, traced on the CPU from the card
    run's own inputs, beside the card's ``max_memory_allocated`` for it,
    and their ratio (no bound).  It prints its wall time;
-14. the card's line, the kernels' JSON line (the zoo rows with
-   ``train_launches``, phase 10's count, and ``opp_sync_launches``, phase
-   11's, both 0; the fused-CNN rows with ``sharded_sweep_launches``, each
-   sweep rank's count), every phase's wall time and the script's total,
-   and the result line.
+14. the card's line, the moe dispatch kernels' JSON line (8a's times,
+   bounds, largest gaps and dropped shares), the kernels' JSON line (the
+   zoo and moe rows with ``train_launches``, phase 10's count, and
+   ``opp_sync_launches``, phase 11's, both 0; the moe rows, which replace
+   no TPU kernel, also with ``family_launches``, each family prefill's
+   wrapper calls, ``launches_per_call``, the ``__global__`` launches a
+   call, and ``sweep_launches``; the fused-CNN and moe rows with
+   ``sharded_sweep_launches``, each sweep rank's count), every phase's
+   wall time and the script's total, and the result line.
 
 Every phase prints its wall time when it ends.  Cut in depth or
 repetition to keep the script within half its 1200 s limit: 8c's
@@ -252,6 +265,10 @@ FUSED_CNN = ("conv_pool_fwd_k", "conv_pool_bwd_k", "fc_chain_fwd_k",
 USER_CNN = ("conv_pool_fwd", "conv_pool_bwd", "fc_chain_fwd", "fc_chain_bwd")
 CODEC = ("quantize_blocks", "dequantize_blocks")
 ZOO = ("flash_attention_bh", "wkv6_bh")
+# the moe dispatch kernels replace no TPU kernel (the reference does this
+# in jnp), so they have no REPLACES entry
+MOE = ("moe_slots", "moe_scatter", "moe_combine")
+KERNELS = tuple(REPLACES) + MOE
 SOURCES = {**{n: "src/repro_torch/kernels/fused_cnn/csrc/fused_cnn.cu"
               for n in FUSED_CNN + USER_CNN},
            **{n: "src/repro_torch/kernels/delta_codec/csrc/delta_codec.cu"
@@ -259,14 +276,18 @@ SOURCES = {**{n: "src/repro_torch/kernels/fused_cnn/csrc/fused_cnn.cu"
            "flash_attention_bh":
                "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu",
-           "wkv6_bh": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"}
+           "wkv6_bh": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+           **{n: "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch.cu"
+              for n in MOE}}
 # scratch for the serving phase's checkpoints (git-ignored)
 CKPT_DIR = os.path.join(HERE, "build", "chip_smoke_ckpt")
-# __global__ launches per wrapper call
+# __global__ launches per wrapper call (a kernel's ``LAUNCHES`` counts its
+# wrapper's calls)
 LAUNCHES_PER_CALL = {"conv_pool_fwd_k": 1, "conv_pool_bwd_k": 1,
                      "fc_chain_fwd_k": 1, "fc_chain_bwd_k": 1,
                      "conv_pool_fwd": 1, "conv_pool_bwd": 1,
-                     "fc_chain_fwd": 1, "fc_chain_bwd": 1}
+                     "fc_chain_fwd": 1, "fc_chain_bwd": 1,
+                     "moe_slots": 3, "moe_scatter": 1, "moe_combine": 1}
 
 
 def sync() -> None:
@@ -1012,8 +1033,9 @@ def reset_all_launches():
     from repro_torch.kernels.delta_codec import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fused_cnn import kernel as fk
+    from repro_torch.kernels.moe_dispatch import kernel as mk
     from repro_torch.kernels.wkv6 import kernel as wk
-    for mod in (fk, dk, fa, wk):
+    for mod in (fk, dk, fa, wk, mk):
         mod.reset_launches()
 
 
@@ -1026,8 +1048,10 @@ def all_launches() -> dict:
     from repro_torch.kernels.delta_codec import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fused_cnn import kernel as fk
+    from repro_torch.kernels.moe_dispatch import kernel as mk
     from repro_torch.kernels.wkv6 import kernel as wk
-    return {**fk.LAUNCHES, **dk.LAUNCHES, **fa.LAUNCHES, **wk.LAUNCHES}
+    return {**fk.LAUNCHES, **dk.LAUNCHES, **fa.LAUNCHES, **wk.LAUNCHES,
+            **mk.LAUNCHES}
 
 
 def params_finite(params) -> bool:
@@ -1051,7 +1075,7 @@ def main_path():
     from repro_torch.core.schemes import registered_schemes
     runs = [("opt", 5, False), ("opt", 5, True)] + [
         (s, 2, False) for s in registered_schemes() if s != "opt"]
-    want = {n: 0 for n in REPLACES}
+    want = dict.fromkeys(KERNELS, 0)
     reset_all_launches()
     for scheme, rounds, codec in runs:
         b = 2 if scheme in ("opt", "deadline") or scheme.startswith("opt_") \
@@ -1447,7 +1471,7 @@ def expected_sweep_launches(groups, rounds: int) -> dict:
     codec on a probing program one quantize per epoch and one dequantize
     per round."""
     from repro_torch.core.schemes import get_scheme
-    out = {n: 0 for n in REPLACES}
+    out = dict.fromkeys(KERNELS, 0)
     for g in groups:
         steps = rounds * g.base.local_epochs * g.base.steps_per_epoch
         out["conv_pool_fwd_k"] += 2 * steps + 2 * rounds
@@ -1593,7 +1617,7 @@ def sweep_path(fused_ms: float):
     """Phase 9; returns the launches over the three panels, each group's
     numbers and each panel's ``SweepResult``."""
     from repro_torch.core.sweep import compile_spec
-    total = {n: 0 for n in REPLACES}
+    total = dict.fromkeys(KERNELS, 0)
     numbers, results = {}, {}
     for name, ex, n_prog in sweep_panels():
         groups = compile_spec(ex.to_spec())
@@ -1889,13 +1913,170 @@ def time_zoo_kernels() -> dict:
     return out
 
 
+# the moe dispatch kernels' shapes (T, k, E, d, skew): granite-prefill-
+# chat's batch (18432 tokens, top-8 of 40 experts, d 1536; routes drawn
+# with weights exp(skew·e), so the high experts overflow as the cell's do)
+# and a small ragged one at k = 1
+MOE_CELL = (18432, 8, 40, 1536, 0.05)
+MOE_SMALL = (333, 1, 16, 64, 0.3)
+
+
+def moe_case(shape, dtype, seed: int = 0):
+    """x (T, d), flat_e (T·k,) with k distinct experts a token, flat_w
+    (T·k,) and the capacity C, on the card."""
+    import torch
+    from repro_torch.models import moe
+    T, k, E, d, skew = shape
+    g = torch.Generator().manual_seed(seed)
+    w = torch.exp(skew * torch.arange(E, dtype=torch.float64))
+    flat_e = torch.multinomial(w.expand(T, E), k, replacement=False,
+                               generator=g).reshape(T * k)
+    x = torch.randn(T, d, generator=g).to(dtype)
+    flat_w = torch.rand(T * k, generator=g).to(dtype)
+    C = max(8, int(moe.CAPACITY_FACTOR * T * k / E + 0.5))
+    return x.to(DEVICE), flat_e.to(DEVICE), flat_w.to(DEVICE), C
+
+
+def moe_plain_dispatch(x, flat_e, E, C, k):
+    """The plain path's slots and buffer (``moe._dispatch`` after its
+    router, ``ref.slots_ref`` and ``ref.scatter_ref``): the one-hot
+    cumsum, each token repeated k times, a zeroed (E·C + 1, d) buffer and
+    ``index_copy_``."""
+    from repro_torch.kernels.moe_dispatch import ref as mr
+    slot, keep, counts = mr.slots_ref(flat_e, E, C)
+    return mr.scatter_ref(x, slot, E, C, k), slot, keep, counts
+
+
+def check_moe_dispatch() -> tuple:
+    """The moe dispatch kernels against the plain path at the cell's shape
+    and the small one, f32 and bf16: slots, keep and buffer bit for bit,
+    the combine bit for bit to its twin and within the f32 sums'
+    reordering (2**-20 of the products' magnitudes) plus, at bf16, one
+    bf16 ulp (2**-7 of the output) of the plain ``_combine``.  Returns the
+    dropped share of each case and each kernel's largest gap to its plain
+    code over the cases (0: asserted bitwise)."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import kernel as mk, ref as mr
+    from repro_torch.models import moe
+    out, err = {}, dict.fromkeys(MOE, 0.0)
+    for label, shape in (("cell", MOE_CELL), ("small", MOE_SMALL)):
+        T, k, E, d, _ = shape
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x, flat_e, flat_w, C = moe_case(shape, dt)
+            want, want_slot, want_keep, want_counts = moe_plain_dispatch(
+                x, flat_e, E, C, k)
+            slot, keep, counts = mk.moe_slots(flat_e, E, C)
+            buf = mk.moe_scatter(x, slot, counts, E, C, k)
+            eo = torch.randn(E, C, d, device=DEVICE,
+                             generator=torch.Generator(DEVICE).manual_seed(5)
+                             ).to(dt)
+            y = mk.moe_combine(eo, slot, flat_w, k)
+            plain = moe._combine(eo, want_slot, want_keep, flat_w, T, 1,
+                                 k).reshape(T, d)
+            sync()
+            rows = torch.cat([eo.reshape(E * C, d),
+                              torch.zeros(1, d, dtype=dt, device=DEVICE)])
+            prods = (rows[want_slot].float() * flat_w.float()[:, None]).abs()
+            room = 2 ** -20 * prods.reshape(T, k, d).sum(1)
+            if dt == torch.bfloat16:
+                room = room + 2 ** -7 * plain.float().abs()
+            gap = (y.float() - plain.float()).abs()
+            twin = mr.combine_ref(eo, slot, flat_w, k)
+            ok = {"slot": torch.equal(slot, want_slot),
+                  "keep": torch.equal(keep, want_keep),
+                  "counts": torch.equal(counts, want_counts)
+                  and torch.equal(counts.long(), torch.bincount(
+                      flat_e, minlength=E)),
+                  "buffer": torch.equal(buf, want),
+                  "combine_vs_twin": torch.equal(y, twin),
+                  "combine_vs_plain": bool((gap <= room).all())}
+            for n, (a, b) in (("moe_slots", (slot, want_slot)),
+                              ("moe_scatter", (buf, want)),
+                              ("moe_combine", (y, twin))):
+                err[n] = max(err[n], float((a.float() - b.float()).abs()
+                                           .max()))
+            dropped = 1.0 - float(want_keep.float().mean())
+            print(f"  moe dispatch {label} T={T} k={k} E={E} C={C} d={d} "
+                  f"{tag}: dropped share {dropped:.4f}, combine vs plain "
+                  f"max abs gap {float(gap.max()):.3e} (bitwise "
+                  f"{float((y == plain).double().mean()):.4f}); "
+                  + ", ".join(f"{n} {'ok' if v else 'FAIL'}"
+                              for n, v in ok.items()))
+            if not all(ok.values()):
+                raise AssertionError(f"moe dispatch {label} {tag}: {ok}")
+            out[f"{label}/{tag}"] = dropped
+    return out, err
+
+
+def time_moe_dispatch() -> dict:
+    """Each moe dispatch kernel at the cell's shape (bf16) beside the plain
+    version's time and its bound: bytes at the HBM rate, each input byte
+    read once and each output byte written once.  Slots: the experts read
+    (8 B a route), the slots and keep written (9 B a route) and the
+    counts.  Scatter: x read once, the (E, C, d) buffer written once, the
+    slots read.  Combine: each kept route's expert row read once, y
+    written once, the slots and weights read."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import kernel as mk, ref as mr
+    from repro_torch.models import moe
+    T, k, E, d, _ = MOE_CELL
+    dt = torch.bfloat16
+    x, flat_e, flat_w, C = moe_case(MOE_CELL, dt)
+    es, n = x.element_size(), T * k
+    slot, keep, counts = mk.moe_slots(flat_e, E, C)
+    kept = int(keep.sum())
+    buf = mk.moe_scatter(x, slot, counts, E, C, k)
+    eo = torch.randn(E, C, d, device=DEVICE).to(dt)
+    work = {"moe_slots": n * 8 + n * 9 + E * 4,
+            "moe_scatter": T * d * es + E * C * d * es + n * 8,
+            "moe_combine": kept * d * es + T * d * es + n * (8 + es)}
+    kernel = {
+        "moe_slots": lambda: mk.moe_slots(flat_e, E, C),
+        "moe_scatter": lambda: mk.moe_scatter(x, slot, counts, E, C, k),
+        "moe_combine": lambda: mk.moe_combine(buf, slot, flat_w, k)}
+    plain = {
+        "moe_slots": lambda: mr.slots_ref(flat_e, E, C),
+        "moe_scatter": lambda: moe_plain_dispatch(x, flat_e, E, C, k),
+        "moe_combine": lambda: moe._combine(eo, slot, keep, flat_w, T, 1,
+                                            k)}
+    out = {}
+    for name in kernel:
+        split = device_split(kernel[name], iters=20)
+        ms = sum(split.values())
+        plain_ms = device_ms(plain[name], iters=10)
+        b_ms, by = bound_ms(work[name], 0.0)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": by, "library_ms": None,
+                     "split_ms": {short_name(kn): v
+                                  for kn, v in split.items()}}
+        print(f"  {name} bf16 T={T} k={k} E={E} C={C} d={d}: kernel "
+              f"{ms * 1e3:9.2f} us  plain {plain_ms * 1e3:9.2f} us  bound "
+              f"{b_ms * 1e3:7.2f} us ({by}, {work[name] / 1e6:.1f} MB; "
+              f"{b_ms / ms:.1%} of it); by kernel "
+              + ", ".join(f"{short_name(kn)} {v * 1e3:.2f} us"
+                          for kn, v in split.items()))
+    print("  (the plain scatter's time includes its slots; no single "
+          "PyTorch call computes any of the three)")
+    return out
+
+
+def moe_dispatch_path() -> dict:
+    """Phase 8's moe dispatch kernels: checked, then timed."""
+    import torch
+    shares, err = check_moe_dispatch()
+    torch.cuda.synchronize()
+    return {"dropped_share": shares, "max_abs_err": err,
+            "timing": time_moe_dispatch()}
+
+
 def zoo_prefill(cfg, label: str, iters: int = 3, seq: int = ZOO_S):
     """The main path of the zoo: ``make_prefill_step`` on B x S prompts at
     full width, weights from the port's init (one generator seed), inputs
     from ``models.inputs.materialize`` (tokens; frame embeddings for audio;
     patch embeddings and M-RoPE positions for vlm).  Counts are set to 0
     just before the first prefill and read just after it; returns (model,
-    params, inputs, launches, ms per prefill, busy share)."""
+    params, inputs, launches of the zoo and moe kernels, ms per prefill,
+    busy share)."""
     import torch
     from repro_torch.models import build_model, inputs as zin
     from repro_torch.training.step import make_prefill_step
@@ -1928,8 +2109,9 @@ def zoo_prefill(cfg, label: str, iters: int = 3, seq: int = ZOO_S):
           f"{cfg.dtype}), B={ZOO_B} x S={seq} ({', '.join(batch)}): "
           f"{ms:.1f} ms per prefill (median of {iters}, first "
           f"{times[0]:.1f}), {ZOO_B * seq / ms * 1e3:.0f} prompt tokens/s; "
-          f"launches { {n: launches[n] for n in ZOO} }")
-    return (model, params, batch, {n: launches[n] for n in ZOO}, ms, busy)
+          f"launches { {n: launches[n] for n in ZOO + MOE} }")
+    return (model, params, batch, {n: launches[n] for n in ZOO + MOE}, ms,
+            busy)
 
 
 def profile_step(fn, label: str, top: int = 10):
@@ -2047,22 +2229,26 @@ def zoo_serving(rwkv_model, rwkv_params) -> dict:
 
 def moe_dropped_shares(fn) -> list:
     """The share of routed tokens that the scatter path drops for
-    capacity, per moe layer, over one call of ``fn``: each call of
-    ``moe.dispatch_slots`` is recorded (a read back per layer, so never
-    inside a timed run)."""
+    capacity, per moe layer, over one call of ``fn``: each layer's
+    ``moe.moe_scatter`` call runs under its own recording, whose
+    ``moe.dropped_routes`` over ``moe.routes`` is the layer's share (a
+    read back per layer, so never inside a timed run)."""
     from repro_torch.models import moe
-    plain, shares = moe.dispatch_slots, []
+    from repro_torch.utils import trace
+    plain, shares = moe.moe_scatter, []
 
-    def recorded(flat_e, E, C):
-        slot, keep = plain(flat_e, E, C)
-        shares.append(1.0 - float(keep.float().mean()))
-        return slot, keep
+    def recorded(params, cfg, x):
+        with trace.record() as rec:
+            out = plain(params, cfg, x)
+        shares.append(rec.counters["moe.dropped_routes"]
+                      / rec.counters["moe.routes"])
+        return out
 
-    moe.dispatch_slots = recorded
+    moe.moe_scatter = recorded
     try:
         fn()
     finally:
-        moe.dispatch_slots = plain
+        moe.moe_scatter = plain
     return shares
 
 
@@ -2186,10 +2372,17 @@ def family_path(arch: str) -> dict:
     model, params, batch, launch, ms, busy = zoo_prefill(cfg, arch,
                                                          iters=iters, seq=seq)
     lap("prefill")
-    if launch != {"flash_attention_bh": cfg.num_layers, "wkv6_bh": 0}:
+    want = {**dict.fromkeys(ZOO + MOE, 0),
+            "flash_attention_bh": cfg.num_layers}
+    if cfg.num_experts:
+        want.update(dict.fromkeys(MOE, cfg.num_layers))
+    if launch != want:
         raise AssertionError(f"{arch} prefill launches {launch}: expected "
-                             f"one flash attention per layer")
+                             f"{want}, one flash attention a layer and on "
+                             f"a moe model one call of each moe dispatch "
+                             f"wrapper a layer")
     out = {"layers": cfg.num_layers, "launches": launch["flash_attention_bh"],
+           "moe_launches": {n: launch[n] for n in MOE},
            "prefill_ms": ms, "prompt_tok_s": ZOO_B * seq / ms * 1e3,
            "busy": busy}
     if cfg.num_experts:
@@ -2326,11 +2519,12 @@ def zoo_path(chk: Check):
     check_zoo_kernels(chk)
     torch.cuda.synchronize()
     timing = time_zoo_kernels()
+    timing["moe"] = moe_dispatch_path()
     llama_cfg, rwkv_cfg = zoo_configs()
     model, params, _, fa_launch, llama_ms, _ = zoo_prefill(llama_cfg,
                                                            "llama3.2-1b")
-    if fa_launch != {"flash_attention_bh": llama_cfg.num_layers,
-                     "wkv6_bh": 0}:
+    if fa_launch != {**dict.fromkeys(ZOO + MOE, 0),
+                     "flash_attention_bh": llama_cfg.num_layers}:
         raise AssertionError(f"llama prefill launches {fa_launch}: expected "
                              f"one flash attention per layer")
     zoo_kernel_vs_cache(model, params, "llama3.2-1b")
@@ -2338,7 +2532,7 @@ def zoo_path(chk: Check):
     torch.cuda.empty_cache()
     r_model, r_params, _, wk_launch, rwkv_ms, _ = zoo_prefill(
         rwkv_cfg, f"rwkv6-7b ({RWKV_LAYERS} of 32 layers)")
-    if wk_launch != {"flash_attention_bh": 0,
+    if wk_launch != {**dict.fromkeys(ZOO + MOE, 0),
                      "wkv6_bh": rwkv_cfg.num_layers}:
         raise AssertionError(f"rwkv6 prefill launches {wk_launch}: expected "
                              f"one wkv6 per layer")
@@ -2405,9 +2599,10 @@ def token_batch(cfg, b: int, s: int, seed: int = 0, device=None):
 
 
 def add_launches(total: dict, label: str) -> None:
-    """Add the zoo kernels' counts since the last reset to ``total``."""
+    """Add the zoo and moe kernels' counts since the last reset to
+    ``total``."""
     got = all_launches()
-    for n in ZOO:
+    for n in ZOO + MOE:
         total[n] += got[n]
         if got[n]:
             raise AssertionError(f"{label}: {n} launched {got[n]} times in "
@@ -2479,7 +2674,7 @@ def train_llama(train_launches: dict) -> dict:
           f"peak {gb(peak):.2f} GiB; losses "
           + ", ".join(f"{x:.4f}" for x in losses)
           + f"; every one of {len(tree_leaves(p0))} param leaves moved; "
-          f"launches { {n: 0 for n in ZOO} }")
+          f"launches { {n: 0 for n in ZOO + MOE} }")
     del p0
     busy = profile_step(lambda: step(state, batch), "llama3.2-1b train step")
     reset_all_launches()
@@ -2699,7 +2894,7 @@ def train_path():
     step of the phase, which must be 0, and the Llama-3.2-1B numbers)."""
     import torch
     t0 = time.perf_counter()
-    train_launches = dict.fromkeys(ZOO, 0)
+    train_launches = dict.fromkeys(ZOO + MOE, 0)
     numbers = train_llama(train_launches)
     torch.cuda.empty_cache()
     train_resume(train_launches)
@@ -2918,9 +3113,9 @@ def check_opp_sync(out: list, full: bool) -> None:
             if not bool(np.isfinite(rd["losses"].numpy()).all()):
                 raise AssertionError(f"{tag} round {r}: pod {rank}'s losses "
                                      f"{rd['losses']} are not finite")
-        if any(o["launches"][n] for n in ZOO):
+        if any(o["launches"][n] for n in ZOO + MOE):
             raise AssertionError(f"{tag}: pod {rank} launched a zoo kernel "
-                                 f"{ {n: o['launches'][n] for n in ZOO} }")
+                                 f"{ {n: o['launches'][n] for n in ZOO + MOE} }")
 
 
 def opp_sync_path() -> dict:
@@ -2982,7 +3177,7 @@ def opp_sync_path() -> dict:
     if not ok:
         raise AssertionError("OpportunisticSync: card and CPU disagree")
     return {"launches": {n: sum(o["launches"][n] for o in card)
-                         for n in ZOO},
+                         for n in ZOO + MOE},
             "round_ms": float(np.median(span["ms"])),
             "sync_ms": float(np.median(span["sync_ms"])),
             "sync_share": float(np.median(share))}
@@ -3045,7 +3240,7 @@ def run_multipod_example() -> float:
 
 
 def ranks_path(fig3b, per_row_ms: dict):
-    """Phase 11; returns (the zoo kernels' launches summed over the
+    """Phase 11; returns (the zoo and moe kernels' launches summed over the
     OpportunisticSync ranks, which must be 0, each sweep rank's launches,
     the OpportunisticSync numbers)."""
     import torch
@@ -3670,6 +3865,25 @@ def main() -> int:
                        bf16_bound_ms=tb["bound_ms"],
                        bf16_bitwise_share=chk.bf16_equal.get(n))
         rows.append(row)
+    moe_timing = zoo_timing["moe"]["timing"]
+    for n in MOE:
+        t = moe_timing[n]
+        rows.append({
+            "name": n, "route": "cuda", "source": SOURCES[n],
+            "replaces": None, "launches": launches[n],
+            "launches_per_call": LAUNCHES_PER_CALL[n],
+            "max_abs_err": zoo_timing["moe"]["max_abs_err"][n],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "dtype": "bfloat16",
+            # one call of each wrapper a layer in granite's prefill
+            "family_launches": {a: f["moe_launches"][n]
+                                for a, f in families.items()},
+            "train_launches": train_launches[n],
+            "opp_sync_launches": opp_launches[n],
+            "sweep_launches": sweep_launches[n],
+            "sharded_sweep_launches": [la[n]
+                                       for la in ranks_sweep_launches]})
     for r in rows:
         if not all(isinstance(r[key], (int, float)) and math.isfinite(r[key])
                    for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")):
@@ -3708,6 +3922,7 @@ def main() -> int:
           f"{opp_numbers['sync_share']:.3f}); multipod twin "
           f"{opp_numbers['example_s']:.1f} s")
     print(card_line())
+    print(json.dumps({"moe_dispatch_kernels": zoo_timing["moe"]}))
     print(json.dumps({"kernels": rows}))
     print(clock.summary())
     print(json.dumps({"ok": True, "device": {

@@ -431,7 +431,8 @@ def compare_twin(name: str, path: str, ref_thunk: Callable[[], Any],
 
 def twin_registry(device) -> List[Tuple[str, str, Callable, Callable]]:
     """Every kernels/* ref/kernel twin pair as (name, path, ref, kernel),
-    under the reference's names.
+    under the reference's names (the moe dispatch pairs, which replace no
+    TPU kernel, under the port's).
 
     Each thunk returns a spec tree: a side that is plain torch runs
     ``abstract``ally, a side that goes through a kernel wrapper
@@ -445,6 +446,8 @@ def twin_registry(device) -> List[Tuple[str, str, Callable, Callable]]:
     import repro_torch.kernels.flash_attention.ref as far
     import repro_torch.kernels.fused_cnn.ops as cnn_ops
     import repro_torch.kernels.fused_cnn.ref as cnn_ref
+    import repro_torch.kernels.moe_dispatch.kernel as mdk
+    import repro_torch.kernels.moe_dispatch.ref as mdr
     import repro_torch.kernels.wkv6.ops as wko
     import repro_torch.kernels.wkv6.ref as wkr
     from repro_torch.kernels.fused_cnn.ops import ForwardPolicy
@@ -529,6 +532,37 @@ def twin_registry(device) -> List[Tuple[str, str, Callable, Callable]]:
             lambda: real(cnn_ops.make_stacked_loss_grad(vm), stacked, bx, by),
             lambda pol=pol: real(cnn_ops.make_stacked_loss_grad(pol),
                                  stacked, bx, by)))
+
+    # -- moe_dispatch -----------------------------------------------------
+    # These kernels replace no TPU kernel (the reference dispatches in
+    # jnp); the names are the port's.  T = 128 tokens, k = 2 of E = 10
+    # experts (the seeded ints lie in [0, 10)), C = 16 slots each, d = 64;
+    # the seeded slots of the combine are kept rows, some shared
+    path = f"{_KERNELS}/moe_dispatch/kernel.py"
+    T, k, E, C, d = 128, 2, 10, 16, 64
+    fe = Spec((T * k,), torch.int64)
+
+    def scatter(a, e):
+        slot, _, counts = mdk.moe_slots(e, E, C)
+        return mdk.moe_scatter(a, slot, counts, E, C, k)
+
+    pairs.append((
+        "moe_dispatch.slots", path,
+        lambda: ab(lambda e: mdr.slots_ref(e, E, C), fe),
+        lambda: real(lambda e: mdk.moe_slots(e, E, C), fe)))
+    pairs.append((
+        "moe_dispatch.scatter", path,
+        lambda: ab(lambda a, e: mdr.scatter_ref(
+            a, mdr.slots_ref(e, E, C)[0], E, C, k), Spec((T, d), f32), fe),
+        lambda: real(scatter, Spec((T, d), f32), fe)))
+    for dt in (f32, torch.bfloat16):
+        o, w = Spec((E, C, d), dt), Spec((T * k,), dt)
+        pairs.append((
+            f"moe_dispatch.combine[{dtype_name(dt)}]", path,
+            lambda o=o, w=w: ab(lambda a, s, b: mdr.combine_ref(a, s, b, k),
+                                o, fe, w),
+            lambda o=o, w=w: real(
+                lambda a, s, b: mdk.moe_combine(a, s, b, k), o, fe, w)))
     return pairs
 
 

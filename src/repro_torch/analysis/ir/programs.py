@@ -37,7 +37,8 @@ _SEED = 0
 
 FUSED_PATH = "src/repro_torch/core/fused_round.py"
 KERNELS_PATH = "src/repro_torch/kernels"
-KERNEL_PACKAGES = ("fused_cnn", "delta_codec", "flash_attention", "wkv6")
+KERNEL_PACKAGES = ("fused_cnn", "delta_codec", "flash_attention", "wkv6",
+                   "moe_dispatch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,6 +215,21 @@ def _build_kernel(pkg: str, variant: str = ""):
             r, kk, v = (d.normal(k, 64, 2, 64) for _ in range(3))
             w = d.uniform(k, 64, 2, 64, lo=0.5, hi=0.99)
             return wkv6, (r, kk, v, w, d.normal(2, 64))
+        if pkg == "moe_dispatch":
+            from repro_torch.kernels.moe_dispatch import (moe_combine,
+                                                          moe_scatter,
+                                                          moe_slots)
+            # 16·K tokens, top-2 of 4 experts, capacity factor 1.25
+            T, top, E = 16 * k, 2, 4
+            C = 5 * T * top // (4 * E)
+
+            def moe(x, flat_e, flat_w):
+                slot, _, counts = moe_slots(flat_e, E, C)
+                buf = moe_scatter(x, slot, counts, E, C, top)
+                return moe_combine(buf, slot, flat_w, top)
+
+            return moe, (d.normal(T, 64), d.ints(E, T * top),
+                         d.uniform(T * top))
         raise ValueError(f"no IR program for kernels/{pkg}")
 
     return build

@@ -35,6 +35,7 @@ SOURCES: Dict[str, Path] = {
     "delta_codec": _PKG / "delta_codec" / "csrc" / "delta_codec.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "wkv6": _PKG / "wkv6" / "csrc" / "wkv6.cu",
+    "moe_dispatch": _PKG / "moe_dispatch" / "csrc" / "moe_dispatch.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

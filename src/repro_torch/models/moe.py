@@ -17,12 +17,23 @@ for ties, so the port takes the first k of a stable sort.  The aux loss is
 the Switch load-balance term ``E * sum_e f_e * P_e``.  The experts are
 plain products outside any kernel, in the reference as here.
 
+The scatter path's slots and (E, C, d) buffer have one plain
+implementation, ``kernels/moe_dispatch/ref.py``.  On plain tensors outside
+autograd (``module.einsum_path`` False: the inference paths) the slots,
+the buffer and the combine run through ``kernels/moe_dispatch``'s
+wrappers: hand-written CUDA kernels on the card, the plain code on the
+CPU.  They give the plain slots and buffer bit for bit, and ``_combine``
+up to the order of the f32 sum over a token's routes (each weighted row
+rounded to the compute dtype, as here and in the reference).  Autograd
+and DTensors keep the plain code.
+
 Spans (``utils.trace``) of the scatter path: ``moe.dispatch`` (with
 ``moe.route``, the router and its top-k, inside it), ``moe.experts`` and
 ``moe.combine``, device spans on plain CUDA tensors and host spans on
-DTensors; counters ``moe.routes`` (T·k routed tokens) and
+DTensors; counters ``moe.routes`` (T·k routed tokens),
 ``moe.dropped_routes`` (those past their expert's capacity, summed on the
-device while a recording is open).
+device while a recording is open) and ``moe.dispatch_kernel`` (one a
+layer call that takes the kernels).
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.moe_dispatch import kernel as mdk, ref as mdr
 from repro_torch.models import layers as L
 from repro_torch.models import module as m
 from repro_torch.sharding import apply as sh
@@ -113,28 +125,15 @@ def moe_dense(params, cfg: ModelConfig,
     return sh.reshape(y, B, S, d), aux
 
 
-def dispatch_slots(flat_e: torch.Tensor, E: int, C: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Buffer row of each routed token (T·k,) and whether it was kept.
-
-    A token's place in its expert is the count of earlier routes to that
-    expert (an exclusive cumsum of one-hots, in token-major order); past
-    the capacity C it goes to the waste row E·C.  The one-hots are laid
-    out expert-major, so that the cumsum runs along rows: on the card a
-    scan down the (T*k, E) columns took 6.4 ms a layer at T*k = 32768."""
-    onehot = torch.nn.functional.one_hot(flat_e, E).T.contiguous()  # (E, T*k)
-    pos_in_e = torch.cumsum(onehot, dim=1) - onehot            # exclusive
-    pos = torch.gather(pos_in_e, 0, flat_e[None])[0]
-    keep = pos < C                                            # capacity drop
-    slot = torch.where(keep, flat_e * C + pos, E * C)         # waste slot
-    return slot, keep
-
-
-def _dispatch(params, cfg: ModelConfig, x: torch.Tensor, device=False):
-    """Router, top-k and capacity slots.  x: (B, S, d) -> (expert_in
-    (E, C, d), slot (T·k,), keep (T·k,), flat_w (T·k,), aux).  ``device``
-    is the ``moe.route`` span's (``utils.trace.span``): False on gathered
-    replicas, a host span."""
+def _dispatch(params, cfg: ModelConfig, x: torch.Tensor, device=False,
+              kernels: bool = False):
+    """Router, top-k, capacity slots and the (E, C, d) expert buffer.
+    x: (B, S, d) -> (expert_in (E, C, d), slot (T·k,), keep (T·k,),
+    flat_w (T·k,), aux).  The slots and the buffer come from
+    ``kernels/moe_dispatch``'s plain code (``ref.slots_ref``,
+    ``ref.scatter_ref``), or with ``kernels`` from its wrappers, which
+    give the same bits.  ``device`` is the ``moe.route`` span's
+    (``utils.trace.span``): False on gathered replicas, a host span."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.experts_per_token
@@ -143,17 +142,17 @@ def _dispatch(params, cfg: ModelConfig, x: torch.Tensor, device=False):
     with trace.span("moe.route", device=device):
         top_w, top_e, aux = _route(params, cfg, x2d)
     flat_e = top_e.reshape(T * k)
-    flat_w = top_w.reshape(T * k)
-    slot, keep = dispatch_slots(flat_e, E, C)
+    if kernels:
+        slot, keep, counts = mdk.moe_slots(flat_e, E, C)
+        buf = mdk.moe_scatter(x2d.contiguous(), slot, counts, E, C, k)
+    else:
+        slot, keep, counts = mdr.slots_ref(flat_e, E, C)
+        buf = mdr.scatter_ref(x2d, slot, E, C, k)
     trace.count("moe.routes", T * k)
     if trace.active():
-        trace.count("moe.dropped_routes", torch.sum(~keep))
-    src = torch.repeat_interleave(x2d, k, dim=0) if k > 1 else x2d
-    # kept tokens have distinct slots; only the waste row E*C takes
-    # several writes, and it is thrown away
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, slot, src)
-    return buf[:E * C].reshape(E, C, d), slot, keep, flat_w, aux
+        trace.count("moe.dropped_routes",
+                    torch.clamp(counts - C, min=0).sum())
+    return buf, slot, keep, top_w.reshape(T * k), aux
 
 
 def _combine(expert_out: torch.Tensor, slot: torch.Tensor,
@@ -173,6 +172,11 @@ def moe_scatter(params, cfg: ModelConfig, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity scatter/gather path.  x: (B, S, d) -> (y, aux).
 
+    On plain tensors outside autograd the slots, the buffer and the
+    combine run through ``kernels/moe_dispatch`` (counted by
+    ``moe.dispatch_kernel``); where autograd records, through the plain
+    code.
+
     On DTensors the dispatch (router, stable top-k, slot scan, the scatter
     into the (E, C, d) buffer) and the combine run on gathered replicas
     (``sharding.apply.on_replicas``): the capacity is shared by every
@@ -182,15 +186,22 @@ def moe_scatter(params, cfg: ModelConfig, x: torch.Tensor
     the expert count divides it (llama4), else each expert's hidden dim
     (granite), so each rank does 1/model of the experts' work, as the
     reference's GSPMD partition does."""
-    B, S, _ = x.shape
+    B, S, d = x.shape
     k = cfg.experts_per_token
     if not sh.is_dtensor(x):
+        kernels = not m.einsum_path(x, params["router"],
+                                    *params["experts"].values())
+        if kernels:
+            trace.count("moe.dispatch_kernel", 1)
         with trace.span("moe.dispatch", device=x):
-            expert_in, slot, keep, flat_w, aux = _dispatch(params, cfg, x,
-                                                           device=x)
+            expert_in, slot, keep, flat_w, aux = _dispatch(
+                params, cfg, x, device=x, kernels=kernels)
         with trace.span("moe.experts", device=x):
             expert_out = _expert_ffn(params["experts"], expert_in)
         with trace.span("moe.combine", device=x):
+            if kernels:
+                y = mdk.moe_combine(expert_out, slot, flat_w, k)
+                return y.reshape(B, S, d), aux
             return _combine(expert_out, slot, keep, flat_w, B, S, k), aux
     with trace.span("moe.dispatch"):
         expert_in, slot, keep, flat_w, aux = sh.on_replicas(

@@ -168,9 +168,15 @@ _PORT_TWINS = tc.twin_registry("cpu")
 
 
 def test_twin_registry_names_are_the_references():
-    assert [t[0] for t in _PORT_TWINS] == [t[0] for t in _JAX_TWINS]
+    """The reference's pairs, in its order and under its names, then the
+    port's own: the moe dispatch kernels, which replace no TPU kernel."""
+    n = len(_JAX_TWINS)
+    assert [t[0] for t in _PORT_TWINS[:n]] == [t[0] for t in _JAX_TWINS]
     assert [t[1].replace("src/repro_torch/", "src/repro/")
-            for t in _PORT_TWINS] == [t[1] for t in _JAX_TWINS]
+            for t in _PORT_TWINS[:n]] == [t[1] for t in _JAX_TWINS]
+    assert [t[0] for t in _PORT_TWINS[n:]] == [
+        "moe_dispatch.slots", "moe_dispatch.scatter",
+        "moe_dispatch.combine[float32]", "moe_dispatch.combine[bfloat16]"]
 
 
 @pytest.mark.parametrize("i", range(len(_JAX_TWINS)),
@@ -231,7 +237,8 @@ def test_abstract_runs_on_fake_tensors():
 
 def test_twin_coverage_matches_filesystem(tmp_path):
     on_disk = tc.kernel_twin_packages(REPO)
-    assert on_disk == {"delta_codec", "flash_attention", "fused_cnn", "wkv6"}
+    assert on_disk == {"delta_codec", "flash_attention", "fused_cnn",
+                       "moe_dispatch", "wkv6"}
     assert on_disk == tc.covered_twin_packages()
     # a new twin package without a registry entry is a finding
     kdir = tmp_path / "src" / "repro_torch" / "kernels"

@@ -196,7 +196,8 @@ def test_launch_budget_refuses_a_library_build(monkeypatch):
 def test_kernel_modules_are_every_kernel_package():
     names = {m.__name__ for m in g.kernel_modules()}
     assert names == {f"repro_torch.kernels.{p}.kernel" for p in
-                     ("delta_codec", "flash_attention", "fused_cnn", "wkv6")}
+                     ("delta_codec", "flash_attention", "fused_cnn",
+                      "moe_dispatch", "wkv6")}
 
 
 # ---------------------------------------------------------------------------

@@ -108,7 +108,7 @@ def test_registry_builds_seeded_cpu_tensors():
     names = program_names()
     from repro_torch.core.schemes import registered_schemes
     assert len(names) == len(set(names)) == 2 * len(registered_schemes()) \
-        + 2 + 5
+        + 2 + 6
     for prog in engine_programs():
         fn, args = prog.build(4)
         assert callable(fn), prog.name
@@ -138,10 +138,16 @@ def test_committed_scaling_record_in_sync_with_registry():
 
 def test_record_exponents_match_the_reference_record():
     """Each program's total-peak exponent in K is XLA's (the reference's
-    committed record, read only) within the drift tolerance."""
+    committed record, read only) within the drift tolerance.  The one
+    program the reference has no record of is the port's moe dispatch
+    kernel, which replaces no TPU kernel."""
     ref = json.loads((REPO / "analysis_scaling.json").read_text())
     ours = _record()
+    assert set(ours["programs"]) - set(ref["programs"]) == \
+        {"kernel[moe_dispatch]"}
     for name, rec in ours["programs"].items():
+        if name == "kernel[moe_dispatch]":
+            continue
         want = ref["programs"][name]["total_exponent"]
         assert abs(rec["total_exponent"] - want) <= \
             scaling.DRIFT_TOLERANCE, (name, rec["total_exponent"], want)

@@ -355,18 +355,18 @@ def _moe_rank(rank, world, device):
     shards, then again with the experts on gathered replicas (the
     replicated dispatch every rank ran before); rank 0 holds loss,
     params, logits and every layer's dropped routes."""
-    from repro_torch.models import moe
+    from repro_torch.kernels.moe_dispatch import ref as mdr
     from repro_torch.sharding import apply as sh
     torch.manual_seed(0)
     mesh = M.make_debug_mesh(device="cpu")
-    plain, drops = moe.dispatch_slots, []
+    plain, drops = mdr.slots_ref, []
 
     def recorded(flat_e, E, C):
-        slot, keep = plain(flat_e, E, C)
+        slot, keep, counts = plain(flat_e, E, C)
         drops.append(int((~keep).sum()))
-        return slot, keep
+        return slot, keep, counts
 
-    moe.dispatch_slots = recorded
+    mdr.slots_ref = recorded
     on_shards, out = sh.experts_on_shards, {}
     for name, make in MOE_CFGS.items():
         sh.experts_on_shards = on_shards

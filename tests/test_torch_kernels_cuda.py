@@ -1,5 +1,6 @@
-"""The CUDA kernels (fused CNN, delta codec, flash attention, WKV6) against
-their plain twins on the card, and the port's import hygiene.
+"""The CUDA kernels (fused CNN, delta codec, flash attention, WKV6, moe
+dispatch) against their plain twins on the card, and the port's import
+hygiene.
 
 The kernel tests need an NVIDIA card (marker ``cuda``): they skip, with a
 reason, where ``torch.cuda.is_available()`` is False; on the card run them
@@ -17,6 +18,14 @@ codec kernels are held to their twins bitwise (q, scales and the
 dequantized values) at the fused round's M = 256·10 rows and one tree's
 217, blocks 128 and 512, int8 and int4, with all-zero rows and lanes on
 exact .5 quanta.
+
+The moe dispatch kernels (slots, scatter, combine) are held to the plain
+scatter path at granite-prefill-chat's batch (T 18432, top-8 of 40
+experts, d 1536, routes skewed so that some drop) and at a small ragged
+shape at k = 1: slots, keep and the expert buffer bit for bit, the
+combine bit for bit to its twin and to the plain path within the f32
+sums' reordering; a layer on plain tensors launches each wrapper once and
+one that autograd records none.
 
 The zoo's kernels are held to their twins at Llama-3.2-1B's and
 RWKV6-7B's prefill shapes, on masks, ragged lengths, Sq < Sk and every
@@ -1129,6 +1138,132 @@ def test_zoo_kernels_refuse_autograd_on_the_card(cuda):
     assert fa.LAUNCHES["flash_attention_bh"] == wk.LAUNCHES["wkv6_bh"] == 1
 
 
+# the moe dispatch kernels' cases (T, k, E, d, skew): granite-prefill-chat's
+# batch (T 18432, top-8 of 40, d 1536) with routes drawn with weights
+# exp(skew·e), so that the high experts overflow their capacity, and a
+# small ragged shape at k = 1
+MOE_CASES = {"cell": (18432, 8, 40, 1536, 0.05), "small": (333, 1, 16, 64, 0.3)}
+
+
+def _moe_case(case, dtype, device):
+    """x (T, d), flat_e (T·k,) token-major with k distinct experts a
+    token, flat_w (T·k,), the capacity C, and (T, k, E)."""
+    from repro_torch.models import moe
+    T, k, E, d, skew = MOE_CASES[case]
+    g = torch.Generator().manual_seed(T + k)
+    w = torch.exp(skew * torch.arange(E, dtype=torch.float64))
+    flat_e = torch.multinomial(w.expand(T, E), k, replacement=False,
+                               generator=g).reshape(T * k)
+    x = torch.randn(T, d, generator=g).to(dtype)
+    flat_w = torch.rand(T * k, generator=g).to(dtype)
+    C = max(8, int(moe.CAPACITY_FACTOR * T * k / E + 0.5))
+    return (x.to(device), flat_e.to(device), flat_w.to(device), C,
+            (T, k, E))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_dispatch_kernels_equal_the_plain_path(cuda, case, dtype):
+    """Slots, keep, counts and the (E, C, d) buffer equal the plain code's
+    (``ref.slots_ref``, ``ref.scatter_ref``: its one-hot cumsum,
+    repeat_interleave and index_copy_ on the card) bit for bit, some
+    routes dropped; the combine equals its twin bit for bit
+    (both sum the rounded products in f32 in route order, __fadd_rn
+    against torch's add) and the plain ``_combine`` within the f32 sums'
+    reordering (2**-20 of the products' magnitudes at k <= 8) plus, at
+    bf16, one bf16 ulp of the output (2**-7 of its magnitude): the same
+    products, summed in f32 in another order, each rounded once."""
+    from repro_torch.kernels.moe_dispatch import kernel as mk, ref as mr
+    from repro_torch.models import moe
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    x, flat_e, flat_w, C, (T, k, E) = _moe_case(case, dt, cuda)
+    d = x.shape[1]
+    mk.reset_launches()
+    slot, keep, counts = mk.moe_slots(flat_e, E, C)
+    want_slot, want_keep, want_counts = mr.slots_ref(flat_e, E, C)
+    assert torch.equal(slot, want_slot) and torch.equal(keep, want_keep)
+    assert not bool(keep.all())
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(counts.long(), torch.bincount(flat_e, minlength=E))
+    buf = mk.moe_scatter(x, slot, counts, E, C, k)
+    assert torch.equal(buf, mr.scatter_ref(x, want_slot, E, C, k))
+    out = torch.randn(E, C, d, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(5)).to(dt)
+    y = mk.moe_combine(out, slot, flat_w, k)
+    torch.cuda.synchronize()
+    assert torch.equal(y, mr.combine_ref(out, slot, flat_w, k))
+    plain = moe._combine(out, slot, keep, flat_w, T, 1, k).reshape(T, d)
+    rows = torch.cat([out.reshape(E * C, d),
+                      torch.zeros(1, d, dtype=dt, device=cuda)])
+    prods = (rows[slot].float() * flat_w.float()[:, None]).abs()
+    room = 2 ** -20 * prods.reshape(T, k, d).sum(1)
+    if dt == torch.bfloat16:
+        room = room + 2 ** -7 * plain.float().abs()
+    assert bool(((y.float() - plain.float()).abs() <= room).all())
+    assert mk.LAUNCHES == {"moe_slots": 1, "moe_scatter": 1,
+                           "moe_combine": 1}
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_kernels_are_deterministic(cuda):
+    """Two runs of the three kernels at the cell's shape: the same bits
+    (the slot counts' shared-memory atomics add in any order; a count has
+    none)."""
+    from repro_torch.kernels.moe_dispatch import kernel as mk
+    x, flat_e, flat_w, C, (T, k, E) = _moe_case("cell", torch.bfloat16, cuda)
+    runs = []
+    for _ in range(2):
+        slot, keep, counts = mk.moe_slots(flat_e, E, C)
+        buf = mk.moe_scatter(x, slot, counts, E, C, k)
+        runs.append((slot, keep, counts, buf,
+                     mk.moe_combine(buf, slot, flat_w, k)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_moe_layer_takes_the_kernels_outside_autograd_only(cuda):
+    """Granite's layer at its full width (reduced depth does not matter to
+    one layer) on a batch of 4 x 512 tokens: on plain tensors one launch of
+    each wrapper and ``moe.dispatch_kernel`` 1; where autograd records,
+    no launch and no count, and the plain path's output within the
+    combine's reordering of the kernels'."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import kernel as mk
+    from repro_torch.models import moe
+    from repro_torch.utils import trace
+    cfg = get_config("granite-moe-3b-a800m")
+    p = moe.init_moe(torch.Generator(cuda).manual_seed(0), cfg, cuda)
+    x = torch.randn(4, 512, cfg.d_model, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1)
+                    ).to(torch.bfloat16)
+    mk.reset_launches()
+    with trace.record() as rec:
+        y, aux = moe.moe_ffn(p, cfg, x)
+    assert mk.LAUNCHES == {"moe_slots": 1, "moe_scatter": 1,
+                           "moe_combine": 1}
+    assert rec.counters["moe.dispatch_kernel"] == 1
+    xg = x.clone().requires_grad_(True)
+    with trace.record() as rec_g:
+        yg, aux_g = moe.moe_ffn(p, cfg, xg)
+    assert mk.LAUNCHES == {"moe_slots": 1, "moe_scatter": 1,
+                           "moe_combine": 1}
+    assert "moe.dispatch_kernel" not in rec_g.counters
+    assert rec_g.counters["moe.dropped_routes"] == \
+        rec.counters["moe.dropped_routes"]
+    assert torch.equal(aux, aux_g.detach())
+    scale = float(yg.detach().float().abs().max())
+    assert float((y.float() - yg.detach().float()).abs().max()) <= \
+        (2 ** -7 + 8 * 2 ** -20) * scale
+    with pytest.raises(RuntimeError, match="no backward"):
+        mk.moe_scatter(xg.reshape(-1, cfg.d_model),
+                       torch.zeros(2048 * 8, dtype=torch.int64, device=cuda),
+                       torch.zeros(40, dtype=torch.int32, device=cuda),
+                       40, 8, 8)
+    assert mk.LAUNCHES["moe_scatter"] == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["llama", "rwkv6"])
 def test_train_step_on_card_matches_cpu_and_launches_no_kernel(cuda, name):
@@ -1558,7 +1693,7 @@ def test_kernel_build_is_keyed_by_source_and_needs_nvcc(monkeypatch,
                                                         tmp_path):
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == {"fused_cnn", "delta_codec",
-                                   "flash_attention", "wkv6"}
+                                   "flash_attention", "wkv6", "moe_dispatch"}
     for name in _build.SOURCES:
         path = _build.library_path(name)
         assert path.parent == ROOT / "build" / "kernels"

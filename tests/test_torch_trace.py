@@ -6,8 +6,9 @@ the spans the sweep, the round and the prefill place with it.
   ``round`` spans under it, each with ``local_epochs`` ``round.epoch``
   spans, parents right; a Granite prefill has ``num_layers`` x
   ``moe.dispatch``/``moe.experts``/``moe.combine`` under ``prefill.step``;
-  ``moe.routes`` is layers·B·S·k and ``moe.dropped_routes`` the capacity
-  drops ``dispatch_slots`` gives.
+  ``moe.routes`` is layers·B·S·k, ``moe.dropped_routes`` the capacity
+  drops the slots give and ``moe.dispatch_kernel`` one a layer
+  call that takes the dispatch kernels.
 - Recording changes no number: the sweep's metrics and params and the
   prefill's logits are bitwise those of an unrecorded run.
 On the CPU every span is a host span (``device_ms`` None).
@@ -19,6 +20,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core import sweep as tsweep
 from repro_torch.core.hsfl import HSFLConfig
+from repro_torch.kernels.moe_dispatch.ref import slots_ref
 from repro_torch.models import moe
 from repro_torch.models.registry import build_model
 from repro_torch.training.step import make_prefill_step
@@ -171,11 +173,12 @@ def test_dropped_routes_count_the_capacity_drops():
                     generator=torch.Generator().manual_seed(1))
     T, k, E = 128, cfg.experts_per_token, cfg.num_experts
     C = moe.capacity(T, cfg)
-    _, keep = moe.dispatch_slots(torch.arange(k).repeat(T), E, C)
+    _, keep, _ = slots_ref(torch.arange(k).repeat(T), E, C)
     want = int((~keep).sum())
     assert want > 0
     y0, _ = moe.moe_ffn(p, cfg, x)
     with trace.record() as rec:
         y1, _ = moe.moe_ffn(p, cfg, x)
     assert torch.equal(y0, y1)
-    assert rec.counters == {"moe.routes": T * k, "moe.dropped_routes": want}
+    assert rec.counters == {"moe.routes": T * k, "moe.dropped_routes": want,
+                            "moe.dispatch_kernel": 1}

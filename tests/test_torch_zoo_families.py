@@ -45,6 +45,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.configs import base as t_configs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.moe_dispatch.ref import slots_ref  # noqa: E402
 from repro_torch.models import build_model, inputs, mamba, module, moe  # noqa: E402
 from repro_torch.serving import generate, prefill  # noqa: E402
 from repro_torch.training.step import make_decode_step, make_prefill_step  # noqa: E402
@@ -324,8 +325,7 @@ def test_capacity_overflow_drops_the_reference_tokens(name):
     dropped = np.all(got.reshape(T, -1) == 0.0, axis=1)
     np.testing.assert_array_equal(dropped, dropped_ref)
     assert dropped.tolist() == [False] * C + [True] * (T - C)
-    slot, keep = moe.dispatch_slots(
-        torch.arange(k).repeat(T), E, C)
+    slot, keep, _ = slots_ref(torch.arange(k).repeat(T), E, C)
     assert int(keep.sum()) == k * C and int((slot == E * C).sum()) == \
         k * (T - C)
     # the dense path drops nothing: it equals the reference's dense path
